@@ -1,4 +1,4 @@
-"""Default ``model``/``data`` config fields the ported renderer reads.
+"""Default ``model``/``data``/``training`` config fields the port reads.
 
 A yaml-free copy of the matching fields of
 ``speech2lip_tpu.core.config.DEFAULT_CONFIG`` (that module imports yaml at
@@ -23,6 +23,14 @@ DEFAULT_CONFIG: Dict[str, Any] = {
         "skips": [4],
         "output_ch": 3,
         "compute_dtype": "float32",
+        "canonical_depth_height": 500,
+        "canonical_depth_width": 500,
+    },
+    "training": {
+        "batch_size": 1,
+        "learning_rate": 1.0e-4,
+        "scheduler_milestones": [200000, 400000],
+        "scheduler_gamma": 0.5,
     },
 }
 

@@ -21,7 +21,6 @@ from speech2lip_tpu_torch.models import unet_light
 from speech2lip_tpu_torch.ops import nn as tnn
 from speech2lip_tpu_torch.ops.coords import get_coords
 from speech2lip_tpu_torch.ops.embedders import fourier_embed, time_embed
-from speech2lip_tpu_torch.ops.kernels.fused_mlp import fused_mlp
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -48,16 +47,7 @@ def render_lip_batch(params, audio, t_indices, height: int, width: int,
                         device=audio.device)
     uv_emb = fourier_embed(coords, 10)  # [N, 42]
     if use_kernels:
-        f32 = lambda t: t.float().contiguous()
-        trunk = params["trunk"]
-        out = fused_mlp(
-            uv_emb.contiguous(), f32(params["fc_uv"]["b"] + base),
-            f32(params["fc_uv_skip"]["b"] + skip),
-            params["fc_uv"]["w"].contiguous(),
-            params["fc_uv_skip"]["w"].contiguous(),
-            [l["w"].contiguous() for l in trunk],
-            [f32(l["b"]) for l in trunk],
-            params["output"]["w"].contiguous(), f32(params["output"]["b"]))
+        out = tf.mlp_trunk_kernel(params, uv_emb, base, skip)
     else:
         out = tf.mlp_trunk(params, uv_emb[None], base[:, None, :],
                            skip[:, None, :])
@@ -90,7 +80,7 @@ def render_face_batch(params, unet_params, unet_state, batch: Dict[str, Any],
     if use_kernels:
         face = unet_light.apply_infer_fused(unet_params, unet_state, unet_in)
     else:
-        face = unet_light.apply(unet_params, unet_state, unet_in)
+        face, _ = unet_light.apply(unet_params, unet_state, unet_in)
     return {"lip": rgb_lip, "face": face.float()}
 
 

@@ -1,4 +1,4 @@
-"""Light post-fusion U-Net, inference (counterpart of
+"""Light post-fusion U-Net (counterpart of
 ``speech2lip_tpu/models/unet_light.py``).
 
 2-down/2-up U-Net, 64 -> 128 -> 128 channels, align-corners bilinear
@@ -15,24 +15,38 @@ from speech2lip_tpu_torch.ops.kernels.conv_block import fold_bn
 from speech2lip_tpu_torch.ops.kernels.fused_block import fused_block
 
 
-def _double_conv(params, state, x):
+def _bn(params, state, x, train: bool):
+    if train:
+        return tnn.batchnorm_train(params, state, x)
+    return tnn.batchnorm(params, state, x), state
+
+
+def _double_conv(params, state, x, train: bool = False):
     x = tnn.conv2d(params["conv1"], x, padding=1)
-    x = tnn.relu(tnn.batchnorm(params["bn1"], state["bn1"], x))
-    x = tnn.conv2d(params["conv2"], x, padding=1)
-    return tnn.relu(tnn.batchnorm(params["bn2"], state["bn2"], x))
+    x, s1 = _bn(params["bn1"], state["bn1"], x, train)
+    x = tnn.conv2d(params["conv2"], tnn.relu(x), padding=1)
+    x, s2 = _bn(params["bn2"], state["bn2"], x, train)
+    return tnn.relu(x), {"bn1": s1, "bn2": s2}
 
 
-def apply(params, state, x):
-    """Plain eval forward: x [B, H, W, C] -> logits [B, H, W, n_classes]
-    (``apply(train=False)`` of the JAX package)."""
-    x1 = _double_conv(params["inc"], state["inc"], x)
-    x2 = _double_conv(params["down1"], state["down1"], tnn.maxpool2d(x1))
-    x3 = _double_conv(params["down2"], state["down2"], tnn.maxpool2d(x2))
+def apply(params, state, x, train: bool = False):
+    """Plain forward: x [B, H, W, C] -> (logits [B, H, W, n_classes],
+    new BN state).  ``train`` normalises with batch statistics and returns
+    the updated running statistics; otherwise the state comes back as it
+    went in."""
+    new = {}
+    x1, new["inc"] = _double_conv(params["inc"], state["inc"], x, train)
+    x2, new["down1"] = _double_conv(params["down1"], state["down1"],
+                                    tnn.maxpool2d(x1), train)
+    x3, new["down2"] = _double_conv(params["down2"], state["down2"],
+                                    tnn.maxpool2d(x2), train)
     u = tnn.upsample_bilinear(x3, x2.shape[1], x2.shape[2])
-    u = _double_conv(params["up1"], state["up1"], torch.cat([x2, u], dim=-1))
+    u, new["up1"] = _double_conv(params["up1"], state["up1"],
+                                 torch.cat([x2, u], dim=-1), train)
     u = tnn.upsample_bilinear(u, x1.shape[1], x1.shape[2])
-    u = _double_conv(params["up2"], state["up2"], torch.cat([x1, u], dim=-1))
-    return tnn.conv2d(params["outc"], u, padding=0)
+    u, new["up2"] = _double_conv(params["up2"], state["up2"],
+                                 torch.cat([x1, u], dim=-1), train)
+    return tnn.conv2d(params["outc"], u, padding=0), new
 
 
 def apply_infer_fused(params, state, x):

@@ -1,7 +1,8 @@
 """Bilinear sampling (counterpart of ``speech2lip_tpu/ops/grid_sample.py``).
 
 Semantics are torch's ``grid_sample`` with ``align_corners=False``; images
-are NHWC and grids carry (x, y) in [-1, 1] in the last axis.
+are NHWC and grids carry (x, y) in [-1, 1] in the last axis.  Everything
+here is plain autograd-differentiable PyTorch.
 """
 
 from __future__ import annotations
@@ -9,9 +10,12 @@ from __future__ import annotations
 import torch
 
 
-def grid_sample(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+def grid_sample(img: torch.Tensor, grid: torch.Tensor,
+                padding_mode: str = "zeros") -> torch.Tensor:
     """Sample ``img`` [B, H, W, C] at ``grid`` [B, Hg, Wg, 2], bilinear,
-    zeros padding.  Returns [B, Hg, Wg, C]."""
+    ``zeros`` or ``border`` padding.  Returns [B, Hg, Wg, C]."""
+    if padding_mode not in ("zeros", "border"):
+        raise ValueError(f"unsupported padding_mode {padding_mode!r}")
     b, h, w, c = img.shape
     ix = ((grid[..., 0] + 1.0) * w - 1.0) * 0.5
     iy = ((grid[..., 1] + 1.0) * h - 1.0) * 0.5
@@ -24,10 +28,13 @@ def grid_sample(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     flat = img.reshape(b, h * w, c)
 
     def gather(yi, xi):
-        valid = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
         idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).reshape(b, -1)
         vals = torch.gather(flat, 1, idx[..., None].expand(-1, -1, c))
-        return vals.reshape(*yi.shape, c) * valid[..., None].to(img.dtype)
+        vals = vals.reshape(*yi.shape, c)
+        if padding_mode == "border":
+            return vals
+        valid = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+        return vals * valid[..., None].to(img.dtype)
 
     v00 = gather(y0i, x0i)
     v01 = gather(y0i, x0i + 1)
@@ -64,6 +71,30 @@ def grid_sample_onehot(src: torch.Tensor, grid: torch.Tensor, y_off: int,
     g = torch.einsum("bph,bhk->bpk", onehot_y,
                      src.reshape(b, hs, ws * c).float()).reshape(b, -1, ws, c)
     cols = torch.arange(ws, device=src.device)
+    onehot_x = ((cols == x0[..., None]) * (1.0 - wx)
+                + (cols == x0[..., None] + 1) * wx)
+    return torch.einsum("bpw,bpwc->bpc", onehot_x, g).to(src.dtype)
+
+
+def grid_sample_onehot_border(src: torch.Tensor,
+                              grid: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample of ``src`` [B, H, W, C] at ``grid`` [B, P, 2] with
+    exact ``border`` padding for every grid value: the coordinate is
+    clamped to [0, size - 1], floored into [0, size - 2], and the rows and
+    columns are picked by one-hot contractions.  Returns [B, P, C]."""
+    b, h, w, c = src.shape
+    ix = torch.clamp(((grid[..., 0] + 1.0) * w - 1.0) * 0.5, 0.0, w - 1.0)
+    iy = torch.clamp(((grid[..., 1] + 1.0) * h - 1.0) * 0.5, 0.0, h - 1.0)
+    x0 = torch.floor(ix).long().clamp(0, w - 2)
+    y0 = torch.floor(iy).long().clamp(0, h - 2)
+    wx = (ix - x0.to(ix.dtype))[..., None]
+    wy = (iy - y0.to(iy.dtype))[..., None]
+    rows = torch.arange(h, device=src.device)
+    onehot_y = ((rows == y0[..., None]) * (1.0 - wy)
+                + (rows == y0[..., None] + 1) * wy)
+    g = torch.einsum("bph,bhk->bpk", onehot_y,
+                     src.reshape(b, h, w * c).float()).reshape(b, -1, w, c)
+    cols = torch.arange(w, device=src.device)
     onehot_x = ((cols == x0[..., None]) * (1.0 - wx)
                 + (cols == x0[..., None] + 1) * wx)
     return torch.einsum("bpw,bpwc->bpc", onehot_x, g).to(src.dtype)

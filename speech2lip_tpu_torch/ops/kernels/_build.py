@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``speech2lip_tpu_torch/csrc``).
 
-All ``.cu`` sources compile with ``nvcc`` into one shared library with a
-plain C interface under ``<repo>/build/torch_kernels/``, named by a hash of
-the sources so an edited source rebuilds, and load through ``ctypes``.  The
+Each ``.cu`` source compiles with its own ``nvcc`` process, all started
+together, and the objects link into one shared library with a plain C
+interface under ``<repo>/build/torch_kernels/``, named by a hash of the
+sources so an edited source rebuilds, and loaded through ``ctypes``.  The
 build runs at the first kernel launch of a process; nothing here runs at
 import.  A missing ``nvcc`` or a failed build raises.
 """
@@ -18,8 +19,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +42,17 @@ SIGNATURES = {
                              _I, _I, _I, _I, _P],
     "conv3x3_bn_relu_f32": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _P],
+    # (grid, g, dsrc, b, hs, ws, c, p, y_off, x_off, height, width, stream)
+    "hat_sample_dsrc_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _P],
+    "hat_sample_dsrc_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _P],
+    # (src, grid, g, dgrid, b, hs, ws, c, p, y_off, x_off, height, width,
+    #  stream)
+    "hat_sample_dgrid_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _P],
+    "hat_sample_dgrid_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _P],
 }
 
 _lib = None
@@ -68,6 +80,44 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _run(cmds):
+    """Run the commands in parallel; raise with the output of every one
+    that fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def _compile(so: Path) -> None:
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = []
+    cmds = []
+    for src in _sources():
+        if src.suffix != ".cu":
+            continue
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        objs.append(obj)
+        cmds.append([nvcc] + NVCC_FLAGS + ["-c", "-o", str(obj), str(src)])
+    try:
+        _run(cmds)
+        tmp = so.with_suffix(f".{tag}")
+        _run([[nvcc] + ARCH + ["-shared", "-o", str(tmp)]
+              + [str(o) for o in objs]])
+        os.replace(tmp, so)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if its sources changed."""
     global _lib
@@ -76,14 +126,7 @@ def library() -> ctypes.CDLL:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = BUILD_DIR / f"libs2l_kernels_{_digest()}.so"
     if not so.exists():
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = ([_nvcc()] + NVCC_FLAGS + ["-o", str(tmp)]
-               + [str(s) for s in _sources() if s.suffix == ".cu"])
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-        os.replace(tmp, so)
+        _compile(so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -94,6 +94,26 @@ def test_fused_mlp_plain_matches_jax_trunk():
     assert _err(kmlp.fused_mlp_plain(*args), ref) < 2e-5
 
 
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_render_pixels_matches_jax(use_kernels):
+    """K1b: one frame's pixels, the 4-offset ensemble folded into the rows
+    (``use_kernels`` routes the trunk through K1 with one frame)."""
+    from speech2lip_tpu_torch.models import talking_face as ttf
+    jp = _tf_params()
+    tp = weights.from_jax(jp, *unet_params(16))[0]
+    rng = np.random.default_rng(3)
+    coords = rng.uniform(0, 1, (4, 96, 2)).astype(np.float32)
+    code = rng.standard_normal((1, 64)).astype(np.float32)
+    ref = jtf.render_pixels(jp, jnp.asarray(coords), jnp.asarray(code), 7.0)
+    before = kmlp.launches
+    got = ttf.render_pixels(tp, torch.from_numpy(coords),
+                            torch.from_numpy(code), 7.0,
+                            use_kernels=use_kernels)
+    assert kmlp.launches == before
+    # float32; bias folding and summation order differ over 9 layers
+    assert _err(got, ref) < 2e-5
+
+
 @pytest.fixture
 def interp(monkeypatch):
     monkeypatch.setattr(jws, "INTERPRET", True)
@@ -171,7 +191,7 @@ def test_unet_matches_jax_apply(size):
         np.float32)
     ref, _ = junet.apply(jp, js, jnp.asarray(x), train=False)
     xt = torch.from_numpy(x)
-    assert _err(tunet.apply(up, us, xt), ref) < 1e-4
+    assert _err(tunet.apply(up, us, xt)[0], ref) < 1e-4
     # the kernel U-Net computes the same function (exact-2x align-corners
     # upsampling at H, W multiples of 4)
     assert _err(tunet.apply_infer_fused(up, us, xt), ref) < 1e-4
@@ -189,11 +209,15 @@ def test_weight_bridge_layouts():
     jp = _tf_params()
     jup, jus = unet_params(64)
     got = weights.from_jax(jp, jup, jus, dtype=torch.bfloat16)
-    assert "canonical_depth" not in got[0]
+    # the training step learns the canonical depth: the bridge keeps it
+    assert got[0]["canonical_depth"].shape == (8, 8)
     assert got[0]["trunk"][5]["w"].shape == (512, 256)
     assert got[1]["up1"]["conv1"]["w"].dtype == torch.bfloat16
-    # parameters made from a seed have the bridge's exact tree and shapes
+    # parameters made from a seed have the bridge's exact tree and shapes,
+    # the depth at the configured 500x500 (the JAX tree above is cut to 8x8)
     made = weights.random_params(0, dtype=torch.bfloat16)
+    assert made[0].pop("canonical_depth").shape == (500, 500)
+    got[0].pop("canonical_depth")
     assert [_shapes(t) for t in made] == [_shapes(t) for t in got]
     # a torch-layout (OIHW) conv kernel or a transposed linear is refused
     bad = jax.tree.map(lambda x: x, jup)

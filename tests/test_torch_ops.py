@@ -48,7 +48,7 @@ def test_default_config_fields_match_jax():
     from speech2lip_tpu.core.config import default_config as jdefault
     from speech2lip_tpu_torch.config import default_config
     ours, ref = default_config(), jdefault()
-    for section in ("model", "data"):
+    for section in ("model", "data", "training"):
         for key, val in ours[section].items():
             assert ref[section][key] == val, (section, key)
 
