@@ -4,23 +4,31 @@
 
 Builds the port's CUDA kernels from csrc/ (nvcc, at first use), checks each
 against its plain PyTorch version at May shapes (500x500 face, 120x80 lip)
-in float32 and bfloat16, then drives the port's two paths on random
-parameters made from a seed:
+in float32 and bfloat16, then drives the port's paths on random parameters
+made from a seed:
 
 - serving: three batches of 8 frames through the Renderer in bfloat16
   (K1 fused_mlp, K2 window_sample, K3 fused_block), one batch against the
   plain path;
+- the U-Net's inference entry points at 500x500, batch 8, bfloat16:
+  apply_infer_hcw (10 K4 conv3x3_hcw launches), apply_infer_pallas (10 K6
+  conv3x3_infer launches) and apply_infer_dconv (5 K5 double_conv_hcw
+  launches), each against the plain forward;
+- static-scene serving: three batches of 8 through the
+  StaticSceneRenderer in bfloat16 (K1, K2 and K3 on the lip-window crop);
 - training: three bfloat16 stage-1 steps at batch 8 with the K7 gathers on
   (K2 forward, K7 hat_sample_dsrc / hat_sample_dgrid backward), one step
   against the plain path, a float32 step on a small input, and one
   sync-stage step (SyncNet loss, frozen U-Net) at batch 2;
 
-checks that the kernels carried each path (launch counts), and times the
-kernels and both paths with CUDA events.  Needs one CUDA device; without
-one it exits non-zero before printing any result.
+checks that the kernels carried each path (launch counts, set to 0 just
+before a path and read just after), and times the kernels, a PyTorch
+library call computing the same function where there is one, and the
+paths with CUDA events.  Needs one CUDA device; without one it exits
+non-zero before printing any result.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
-each kernel's launches on the main path, error and times.
+each kernel's launches on its path, error, times and bound.
 """
 
 from __future__ import annotations
@@ -49,7 +57,30 @@ K7_BOUND = {"dsrc": {torch.float32: 1e-5, torch.bfloat16: 1e-2},
 # magnitude: float32 sums in another order; in bfloat16 a K2/dsrc output
 # one ulp (2^-8) apart flips roundings that the bf16 U-Net carries on
 TRAIN_BOUND = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# a U-Net entry point in bf16 against the plain forward in bf16: the plain
+# forward rounds after every op, the kernels once per conv (the serving
+# slice's bound)
+UNET_BF16_BOUND = 1e-2
+# static scene, kernel path: the crop's interior against the full frame.
+# Align-corners upsampling samples the crop's coarse levels at other
+# points than the full frame's (up to half a coarse pixel apart), and bf16
+# rounds on top; a wrong column mask or swapped upsample ratios in K3 on
+# the non-square crop moves it by the activations' own size
+STATIC_GAP_BOUND = 1e-2
 TRAIN_B, SYNC_B = 8, 2
+# NVIDIA H100 SXM data sheet: dense bf16 tensor-core and float32 (no tensor
+# core) peaks, HBM3 rate; a bound is the larger of ops / peak and bytes /
+# rate, each input read once and each output written once
+PEAK = {"bf16": 989e12, "f32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
+# (block.conv, H=W, cin) of the U-Net's ten convs at 500x500, and (block,
+# H=W, cin) of its five DoubleConvs; the weights give cmid and cout
+UNET_CONVS = [("inc.1", 500, 3), ("inc.2", 500, 64), ("down1.1", 250, 64),
+              ("down1.2", 250, 128), ("down2.1", 125, 128),
+              ("down2.2", 125, 128), ("up1.1", 250, 256), ("up1.2", 250, 128),
+              ("up2.1", 500, 128), ("up2.2", 500, 64)]
+UNET_DCONVS = [("inc", 500, 3), ("down1", 250, 64), ("down2", 125, 128),
+               ("up1", 250, 256), ("up2", 500, 128)]
 
 
 def log(msg: str) -> None:
@@ -94,6 +125,36 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound(ops: float, moved: float, peak: str):
+    """(least ms, what bounds it) of work of ``ops`` operations at the
+    ``peak`` rate moving ``moved`` bytes through device memory."""
+    t_ops, t_bytes = ops / PEAK[peak], moved / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def conv_ops(x, cin: int, cout: int) -> float:
+    """Operations of a 3x3 conv over x's pixels (a multiply-add is 2)."""
+    return 2.0 * x.numel() / x.shape[-1] * 9 * cin * cout
+
+
+def library_conv(x, w, scale, bias):
+    """One cuDNN call for conv3x3(x) * scale + bias (ReLU not included):
+    channels-last F.conv2d on x's NHWC memory, the scale folded into the
+    weights outside the call.  A yardstick; the port never calls it."""
+    import torch.nn.functional as F
+    wf = (w.float() * scale).to(x.dtype).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    bf = bias.to(x.dtype)
+    xc = x.permute(0, 3, 1, 2)
+    return lambda: F.conv2d(xc, wf, bf, padding=1)
+
+
 def named_leaves(tree, prefix=""):
     """[(dotted name, tensor)] in ``train_step.tree_leaves`` order."""
     if isinstance(tree, dict):
@@ -105,19 +166,20 @@ def named_leaves(tree, prefix=""):
     return [(prefix[:-1], tree)]
 
 
-# kernel-name fragments of the train step's device time, by layer: the
+# kernel-name fragments of a profiled step's device time, by layer: the
 # port's kernels, cuDNN convolutions, matmuls (lip MLP, 1x1 convs, LPIPS
 # heads) and everything else (BatchNorm, activations, losses, Adam, glue)
 PROFILE_GROUPS = (
-    ("K2/K7 (port kernels)", ("hat_dsrc", "hat_dgrid", "window_sample")),
+    ("port kernels (K1-K7)", ("hat_dsrc", "hat_dgrid", "window_sample",
+                              "fused_mlp_kernel", "conv3x3_kernel",
+                              "double_conv_kernel")),
     ("convolutions", ("conv", "implicit", "fprop", "dgrad", "wgrad",
                       "cudnn", "winograd")),
     ("matmuls", ("gemm", "nvjet", "cutlass", "cublas")),
 )
 
 
-def profile_train_step(run, what: str, step_ms: float,
-                       steps: int = 2) -> float:
+def profile_steps(run, what: str, step_ms: float, steps: int = 2) -> float:
     """Device time of ``steps`` calls of ``run`` by kernel group and the
     busiest kernels (torch.profiler), against ``step_ms`` of CUDA-event
     wall time per step measured without the profiler.  Returns the device
@@ -170,9 +232,9 @@ def train_inputs(dev, b, face, lip_h, lip_w, with_sync=False):
     nets.  Returns (batch, geo, window, params, frozen)."""
     import numpy as np
 
-    from speech2lip_tpu.data.synthetic import synthetic_batch
-    from speech2lip_tpu.data.windows import compute_warp_window
     from speech2lip_tpu_torch import weights
+    from speech2lip_tpu_torch.data.synthetic import synthetic_batch
+    from speech2lip_tpu_torch.data.windows import compute_warp_window
     from speech2lip_tpu_torch.models import talking_face as tf
     from speech2lip_tpu_torch.ops.grid_sample import grid_sample
     from speech2lip_tpu_torch.train import trainer
@@ -207,17 +269,23 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's smoke runs "
                          "only on a GPU")
-    from speech2lip_tpu.data.synthetic import synthetic_batch
-    from speech2lip_tpu.data.windows import compute_warp_window
+    import torch.nn.functional as F
+
     from speech2lip_tpu_torch import weights
     from speech2lip_tpu_torch.config import default_config
+    from speech2lip_tpu_torch.data.synthetic import synthetic_batch
+    from speech2lip_tpu_torch.data.windows import compute_warp_window
     from speech2lip_tpu_torch.infer.renderer import Renderer, render_face_batch
+    from speech2lip_tpu_torch.infer.static_scene import (StaticSceneRenderer,
+                                                         crop_geometry)
     from speech2lip_tpu_torch.models import talking_face as tf
     from speech2lip_tpu_torch.models import unet_light
     from speech2lip_tpu_torch.ops import nn as tnn
     from speech2lip_tpu_torch.ops.coords import get_coords
     from speech2lip_tpu_torch.ops.embedders import fourier_embed
     from speech2lip_tpu_torch.ops.kernels import _build
+    from speech2lip_tpu_torch.ops.kernels import conv_block as kcb
+    from speech2lip_tpu_torch.ops.kernels import conv_hcw as kch
     from speech2lip_tpu_torch.ops.kernels import fused_block as kfb
     from speech2lip_tpu_torch.ops.kernels import fused_mlp as kmlp
     from speech2lip_tpu_torch.ops.kernels import hat_sample as khs
@@ -250,8 +318,11 @@ def main() -> int:
     box = tf.expanded_lip_box(LIP_H, LIP_W, geo["lip_x"], geo["lip_y"])
     window = compute_warp_window([raw["coord"][i] for i in range(8)], box,
                                  FACE, FACE, margin=MARGIN)
+    crop = crop_geometry(window, FACE, FACE)
+    require(crop is not None, f"window {window} gives no static-scene crop")
     log(f"# geometry: face {FACE}, lip {LIP_H}x{LIP_W} at "
-        f"({geo['lip_y']}, {geo['lip_x']}), box {box}, window {window}")
+        f"({geo['lip_y']}, {geo['lip_x']}), box {box}, window {window}, "
+        f"static-scene crop {crop['ch']}x{crop['cw']}")
     batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -278,19 +349,23 @@ def main() -> int:
             8, wh * ww, 2).contiguous()
         return (src, grid, y0b - 1, x0b - 1, FACE, FACE)
 
-    def k3_cases(dtype, b=8):
+    def k3_cases(dtype, h=FACE, w=FACE, b=8):
+        """(name, args, kwargs) of the U-Net's five K3 blocks on an h x w
+        input: each block at 1/d of it, an up block's low-resolution
+        source at half its own."""
         _, up, us = weights.random_params(SEED, device=dev, dtype=dtype)
         cases = []
-        for name, hw, cx, cl, pool in (("inc", 500, 3, 0, True),
-                                       ("down1", 250, 64, 0, True),
-                                       ("down2", 125, 128, 0, False),
-                                       ("up1", 250, 128, 128, False),
-                                       ("up2", 500, 64, 64, False)):
+        for name, d, cx, cl, pool in (("inc", 1, 3, 0, True),
+                                      ("down1", 2, 64, 0, True),
+                                      ("down2", 4, 128, 0, False),
+                                      ("up1", 2, 128, 128, False),
+                                      ("up2", 1, 64, 64, False)):
             p, s = up[name], us[name]
             s1, b1 = fold_bn(p["bn1"], s["bn1"])
             s2, b2 = fold_bn(p["bn2"], s["bn2"])
-            x = torch.rand(b, hw, hw, cx, device=dev, generator=gen).to(dtype)
-            lo = (torch.rand(b, hw // 2, hw // 2, cl, device=dev,
+            hd, wd = h // d, w // d
+            x = torch.rand(b, hd, wd, cx, device=dev, generator=gen).to(dtype)
+            lo = (torch.rand(b, hd // 2, wd // 2, cl, device=dev,
                              generator=gen).to(dtype) if cl else None)
             cases.append((name, (x, p["conv1"]["w"], s1.float(), b1.float(),
                                  p["conv2"]["w"], s2.float(), b2.float()),
@@ -336,6 +411,34 @@ def main() -> int:
             out.append((name, src, grid, cot, g_geo))
         return out
 
+    def conv_cases(dtype, b=8):
+        """(name, (x, w, scale, bias)) of the U-Net's ten convs at May
+        shapes, the eval BatchNorm folded (K4 and K6)."""
+        _, up, us = weights.random_params(SEED, device=dev, dtype=dtype)
+        out = []
+        for name, hw, cin in UNET_CONVS:
+            blk, k = name.split(".")
+            p, s = up[blk], us[blk]
+            sc, bi = fold_bn(p[f"bn{k}"], s[f"bn{k}"])
+            x = torch.rand(b, hw, hw, cin, device=dev, generator=gen).to(dtype)
+            out.append((name, (x, p[f"conv{k}"]["w"].contiguous(), sc.float(),
+                               bi.float())))
+        return out
+
+    def dconv_cases(dtype, b=8):
+        """(name, (x, w1, scale1, bias1, w2, scale2, bias2)) of the U-Net's
+        five DoubleConvs at May shapes (K5)."""
+        _, up, us = weights.random_params(SEED, device=dev, dtype=dtype)
+        out = []
+        for name, hw, cin in UNET_DCONVS:
+            p, s = up[name], us[name]
+            s1, b1 = fold_bn(p["bn1"], s["bn1"])
+            s2, b2 = fold_bn(p["bn2"], s["bn2"])
+            x = torch.rand(b, hw, hw, cin, device=dev, generator=gen).to(dtype)
+            out.append((name, (x, p["conv1"]["w"], s1.float(), b1.float(),
+                               p["conv2"]["w"], s2.float(), b2.float())))
+        return out
+
     # -- phase 2: each kernel against its plain version --------------------
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -352,14 +455,18 @@ def main() -> int:
             [(kws.window_sample(*a), kws.window_sample_plain(*a))],
             K2_BOUND[dtype])
 
+        # K3 on the full frame (the Renderer) and on the static scene's
+        # crop, which is not square and no tile multiple at any level
         worst = 0.0
-        for name, args, kw in k3_cases(dtype):
+        for name, args, kw in (k3_cases(dtype)
+                               + k3_cases(dtype, crop["ch"], crop["cw"])):
             got = kfb.fused_block(*args, **kw)
             ref = kfb.fused_block_plain(*args, **kw)
             pairs = zip(got, ref) if kw["pool"] else [(got, ref)]
+            lo = "" if kw["up"] is None else f" up {tuple(kw['up'].shape)}"
             worst = max(worst, check(
-                f"K3 fused_block {dn} {name} {tuple(args[0].shape)}", pairs,
-                BOUND[dtype]))
+                f"K3 fused_block {dn} {name} {tuple(args[0].shape)}{lo}",
+                pairs, BOUND[dtype]))
         errs[("fused_block", dtype)] = worst
 
         # K1b: one frame (render_pixels), the 4-offset ensemble in the rows
@@ -390,6 +497,27 @@ def main() -> int:
             if name.startswith("integer"):
                 require(bool((dg == 0).all()), "K7 dgrid on pixel centres "
                         "must be 0 (hat'(u) = -sign(u) on |u| < 1)")
+
+        # K4 and K6 launch one kernel; each wrapper is held against the
+        # plain version on the ten convs, K5 on the five DoubleConvs
+        worst = {"conv3x3_hcw": 0.0, "conv3x3_infer": 0.0,
+                 "double_conv_hcw": 0.0}
+        for name, args in conv_cases(dtype):
+            ref = kfb.conv3x3_affine_plain(*args)
+            shape = f"{tuple(args[0].shape)}->{args[1].shape[3]}"
+            for kname, fn in (("conv3x3_hcw", kch.conv3x3_hcw),
+                              ("conv3x3_infer", kcb.conv3x3_infer)):
+                worst[kname] = max(worst[kname], check(
+                    f"{kname} {dn} {name} {shape}", [(fn(*args), ref)],
+                    BOUND[dtype]))
+        for name, args in dconv_cases(dtype):
+            worst["double_conv_hcw"] = max(worst["double_conv_hcw"], check(
+                f"double_conv_hcw {dn} {name} {tuple(args[0].shape)}",
+                [(kch.double_conv_hcw(*args),
+                  kch.double_conv_hcw_plain(*args))], BOUND[dtype]))
+        for kname, e in worst.items():
+            errs[(kname, dtype)] = e
+        torch.cuda.empty_cache()
 
     # -- phase 3: the main path, three batches through the Renderer --------
     cfg = default_config()
@@ -451,6 +579,73 @@ def main() -> int:
             and bool(torch.isfinite(px).all()),
             f"render_pixels: K1 launches {kmlp.launches}, {tuple(px.shape)}")
     log(f"# render_pixels bf16 4x{LIP_H * LIP_W} pixels: K1 launches 1")
+
+    # -- phase 3c: the U-Net's inference entry points, 500x500, batch 8 ----
+    bf = torch.bfloat16
+    _, up_bf, us_bf = weights.random_params(SEED, device=dev, dtype=bf)
+    ux = torch.rand(8, FACE, FACE, 3, device=dev, generator=gen).to(bf)
+    uref, _ = unet_light.apply(up_bf, us_bf, ux)
+    unet_counts = lambda: (kch.conv3x3_launches, kcb.launches,
+                           kch.double_conv_launches)
+    for fn, kname, want in (
+            (unet_light.apply_infer_hcw, "conv3x3_hcw", (10, 0, 0)),
+            (unet_light.apply_infer_pallas, "conv3x3_infer", (0, 10, 0)),
+            (unet_light.apply_infer_dconv, "double_conv_hcw", (0, 0, 5))):
+        kch.conv3x3_launches = kch.double_conv_launches = kcb.launches = 0
+        out = fn(up_bf, us_bf, ux)
+        torch.cuda.synchronize()
+        got = unet_counts()
+        log(f"# {fn.__name__} bf16 B=8 {FACE}x{FACE}: launches K4/K6/K5 "
+            f"{got}")
+        require(got == want, f"{fn.__name__} launches K4/K6/K5 {got}, "
+                f"expected {want}")
+        launches[kname] = sum(got)
+        check(f"{fn.__name__} bf16 vs apply (bf16 cuDNN)", [(out, uref)],
+              UNET_BF16_BOUND)
+    del out, uref
+
+    # -- phase 3d: static-scene serving, three batches of 8 ----------------
+    base = {k: raw[k][0] for k in ("rgb_face_zero", "rgb_face_ori",
+                                   "mask_lip_canonical", "coord")}
+    static = StaticSceneRenderer(cfg, *params, base, window, geo["lip_x"],
+                                 geo["lip_y"], device=dev)
+    g = static.geo
+    require(static.use_kernels and static.compute_dtype == bf
+            and g is not None, "static scene: kernels, bf16 and a crop")
+    log(f"# static scene: window {window}, crop {g['ch']}x{g['cw']} at "
+        f"({g['cy0']}, {g['cx0']}) = {g['ch'] * g['cw'] / FACE ** 2:.3f} "
+        f"of the frame, interior {g['ih']}x{g['iw']} at ({g['iy0']}, "
+        f"{g['ix0']})")
+    for mod in (kmlp, kws, kfb):
+        mod.launches = 0
+    for i in range(3):
+        sout = static(batch["audio"], batch["index"])
+        torch.cuda.synchronize()
+        counts = (kmlp.launches, kws.launches, kfb.launches)
+        log(f"# static batch {i}: face {tuple(sout.shape)}; launches "
+            f"K1/K2/K3 so far {counts}")
+        require(counts == (i + 1, i + 1, 5 * (i + 1)),
+                f"static scene launches K1/K2/K3 {counts} after {i + 1} "
+                "batches")
+        require(sout.shape == (8, FACE, FACE, 3)
+                and bool(torch.isfinite(sout).all()),
+                f"static face {tuple(sout.shape)} not finite")
+    sfull = static.render_full(batch["audio"], batch["index"])
+    inner = (slice(None), slice(g["iy0"], g["iy0"] + g["ih"]),
+             slice(g["ix0"], g["ix0"] + g["iw"]))
+    gap = float((sout[inner] - sfull[inner]).abs().max())
+    gap_scale = max(1.0, float(sfull[inner].abs().max()))
+    outside = sout.clone()
+    outside[inner] = 0
+    require(torch.equal(outside[0], outside[-1]),
+            "static scene: the exterior differs between frames")
+    log(f"# static scene bf16: crop interior vs render_full max|diff| "
+        f"{gap:.3g}, bound {STATIC_GAP_BOUND} x {gap_scale:.3g} "
+        "(align-corners upsampling on the crop is not "
+        "translation-equivariant)")
+    require(gap <= STATIC_GAP_BOUND * gap_scale,
+            "static scene: the crop's interior strays from render_full")
+    del sout, sfull, outside
 
     # -- phase 5: the training path ----------------------------------------
     tbatch, tgeo, twin, tparams, tfrozen = train_inputs(
@@ -576,26 +771,83 @@ def main() -> int:
         "the frozen U-Net moved")
 
     # -- phase 4: timing (bf16, the serving dtype) -------------------------
-    bf = torch.bfloat16
-    a = k1_args(bf)
-    t_k1 = (cuda_ms(lambda: kmlp.fused_mlp(*a)),
-            cuda_ms(lambda: kmlp.fused_mlp_plain(*a)))
+    # each kernel's ms, its plain version's, one PyTorch library call's
+    # computing the same function (None, with a note, where there is none)
+    # and the bound from this run's shapes
+    rows = {}
+
+    def row(name, ms, plain_ms, library_ms, ops, moved, peak, note=None):
+        b_ms, by = bound(ops, moved, peak)
+        rows[name] = {"ms": ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "bound_ms": b_ms,
+                      "bound_by": by}
+        if note:
+            rows[name]["library_note"] = note
+        lib = f"{library_ms:.4f} ms" if library_ms is not None else note
+        log(f"# time {name} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, library {lib}; bound {b_ms:.4f} ms by {by} "
+            f"({ops / 1e9:.2f} Gop, {moved / 1e6:.2f} MB)")
+
+    def crop_grid(grid, y_off, x_off, h, w, hs, ws):
+        """grid [B, P, 2], normalised to the full h x w image
+        (align_corners=False), renormalised to the [hs, ws] crop at
+        (y_off, x_off): [B, 1, P, 2] for F.grid_sample."""
+        ix = ((grid[..., 0] + 1) * w - 1) / 2 - x_off
+        iy = ((grid[..., 1] + 1) * h - 1) / 2 - y_off
+        return torch.stack([(2 * ix + 1) / ws - 1, (2 * iy + 1) / hs - 1],
+                           -1)[:, None]
+
+    def mlp_row(name, a):
+        """K1 / K1b: uv [N, 42] through the input and skip projections
+        once, the trunk and head per frame."""
+        out = kmlp.fused_mlp(*a)
+        trunk = list(a[5]) + [a[7]]
+        ops = 2.0 * a[0].shape[0] * (a[3].numel() + a[4].numel()
+                                     + a[1].shape[0] * sum(w.numel()
+                                                           for w in trunk))
+        row(name, cuda_ms(lambda: kmlp.fused_mlp(*a)),
+            cuda_ms(lambda: kmlp.fused_mlp_plain(*a)), None, ops,
+            nbytes(a[0], a[1], a[2], a[3], a[4], *a[5], *a[6], a[7], a[8],
+                   out), "bf16",
+            note="none: no single PyTorch call runs the 9-layer MLP with "
+                 "per-frame biases")
+
+    mlp_row("fused_mlp", k1_args(bf))
+    a = k1_args(bf, frames=1)
+    mlp_row("fused_mlp_one_frame",
+            (fourier_embed(ens.reshape(-1, 2), 10).to(bf),) + a[1:])
+
     a = k2_args(bf)
-    t_k2 = (cuda_ms(lambda: kws.window_sample(*a)),
-            cuda_ms(lambda: kws.window_sample_plain(*a)))
+    src, grid = a[0], a[1]
+    out = kws.window_sample(*a)
+    # grid_sample takes one dtype for source and grid: float32 copies
+    src32 = src.float().permute(0, 3, 1, 2).contiguous()
+    g4 = crop_grid(grid, *a[2:], *src.shape[1:3])
+    lib = lambda: F.grid_sample(src32, g4, mode="bilinear",
+                                padding_mode="zeros", align_corners=False)
+    log(f"# K2 vs F.grid_sample on the crop: max|diff| "
+        f"{float((lib()[:, :, 0].transpose(1, 2) - out.float()).abs().max()):.3g}")
+    row("window_sample", cuda_ms(lambda: kws.window_sample(*a)),
+        cuda_ms(lambda: kws.window_sample_plain(*a)), cuda_ms(lib),
+        8.0 * src.shape[3] * grid.shape[0] * grid.shape[1],
+        nbytes(src, grid, out), "f32")
+
     # K3's plain version (float32 convs) is its correctness oracle; the
     # plain path serves each block as bf16 cuDNN convs (unet_light.apply's
     # upsample, concat, DoubleConv and pool), timed beside it
-    _, up_bf, us_bf = weights.random_params(SEED, device=dev, dtype=bf)
-
     def plain_path_block(name, x, lo, pool):
         if lo is not None:
             x = torch.cat([x, tnn.upsample_bilinear(lo, *x.shape[1:3])], -1)
         y, _ = unet_light._double_conv(up_bf[name], us_bf[name], x)
         return (y, tnn.maxpool2d(y)) if pool else y
 
-    t_k3 = [0.0, 0.0, 0.0]
+    t_k3, ops, moved = [0.0, 0.0, 0.0], 0.0, 0
     for name, args, kw in k3_cases(bf):
+        x, w1, w2 = args[0], args[1], args[4]
+        outs = kfb.fused_block(*args, **kw)
+        ops += conv_ops(x, w1.shape[2], w1.shape[3]) + conv_ops(
+            x, w2.shape[2], w2.shape[3])
+        moved += nbytes(*args, kw["up"], *(outs if kw["pool"] else (outs,)))
         tk = cuda_ms(lambda: kfb.fused_block(*args, **kw), iters=5)
         tp = cuda_ms(lambda: kfb.fused_block_plain(*args, **kw), iters=5)
         tc = cuda_ms(lambda: plain_path_block(name, args[0], kw["up"],
@@ -603,40 +855,101 @@ def main() -> int:
         log(f"# time K3 {name} bf16 B=8: kernel {tk:.3f} ms, plain "
             f"(float32 convs) {tp:.3f} ms, plain path (bf16 cuDNN) "
             f"{tc:.3f} ms")
-        t_k3[0] += tk
-        t_k3[1] += tp
-        t_k3[2] += tc
-    log(f"# time K1 bf16 B=8 N=9600: kernel {t_k1[0]:.3f} ms, plain "
-        f"{t_k1[1]:.3f} ms")
-    log(f"# time K2 bf16 B=8 P={wh * ww}: kernel {t_k2[0]:.4f} ms, plain "
-        f"{t_k2[1]:.4f} ms")
-    log(f"# time K3 bf16 B=8 five blocks: kernel {t_k3[0]:.3f} ms, plain "
-        f"(float32 convs) {t_k3[1]:.3f} ms, plain path (bf16 cuDNN) "
+        t_k3 = [t_k3[0] + tk, t_k3[1] + tp, t_k3[2] + tc]
+    log(f"# time K3 bf16 B=8 five blocks: plain path (bf16 cuDNN) "
         f"{t_k3[2]:.3f} ms")
+    row("fused_block", t_k3[0], t_k3[1], None, ops, moved, "bf16",
+        note="none: no single PyTorch call fuses the upsample, concat, two "
+             "convs, BatchNorm, ReLU and pool")
+
+    # K4 and K6 (one kernel behind two wrappers) over the ten convs, K5
+    # over the five DoubleConvs; library: cuDNN channels-last convs with
+    # the scale folded into the weights (ReLU not included)
+    t4 = t6 = tp = tl = ops = 0.0
+    moved = 0
+    t_pair = []
+    for name, (x, w, sc, bi) in conv_cases(bf):
+        k4 = cuda_ms(lambda: kch.conv3x3_hcw(x, w, sc, bi), iters=5)
+        t4 += k4
+        t6 += cuda_ms(lambda: kcb.conv3x3_infer(x, w, sc, bi), iters=5)
+        tp += cuda_ms(lambda: kfb.conv3x3_affine_plain(x, w, sc, bi),
+                      iters=5)
+        lib_ms = cuda_ms(library_conv(x, w, sc, bi), iters=5)
+        tl += lib_ms
+        ops += conv_ops(x, w.shape[2], w.shape[3])
+        moved += nbytes(x, w, sc, bi) + x.numel() // x.shape[3] * \
+            w.shape[3] * x.element_size()
+        t_pair.append(k4)
+        log(f"# time conv {name} {tuple(x.shape)}->{w.shape[3]} bf16: K4 "
+            f"{k4:.3f} ms, cuDNN {lib_ms:.3f} ms")
+    row("conv3x3_hcw", t4, tp, tl, ops, moved, "bf16")
+    row("conv3x3_infer", t6, tp, tl, ops, moved, "bf16")
+    t5 = tp = tl = ops = 0.0
+    moved = 0
+    for i, (name, args) in enumerate(dconv_cases(bf)):
+        x, w1, s1, b1, w2, s2, b2 = args
+        k5 = cuda_ms(lambda: kch.double_conv_hcw(*args), iters=5)
+        t5 += k5
+        tp += cuda_ms(lambda: kch.double_conv_hcw_plain(*args), iters=5)
+        c1 = library_conv(x, w1, s1, b1)
+        mid = c1().permute(0, 2, 3, 1)
+        c2 = library_conv(mid, w2, s2, b2)
+        lib_ms = cuda_ms(lambda: (c1(), c2()), iters=5)
+        tl += lib_ms
+        ops += conv_ops(x, w1.shape[2], w1.shape[3]) + conv_ops(
+            mid, w2.shape[2], w2.shape[3])
+        moved += nbytes(*args) + mid.numel() // mid.shape[3] * \
+            w2.shape[3] * x.element_size()
+        log(f"# time DoubleConv {name} {tuple(x.shape)} bf16: K5 {k5:.3f} "
+            f"ms, two K4 launches {t_pair[2 * i] + t_pair[2 * i + 1]:.3f} "
+            f"ms, two cuDNN convs {lib_ms:.3f} ms")
+    row("double_conv_hcw", t5, tp, tl, ops, moved, "bf16")
+    del mid
 
     # K7 at the main path's shapes: dsrc on the window gather, dgrid on
-    # the depth-loss points
+    # the depth-loss points; library: aten.grid_sampler_2d_backward on
+    # float32 copies (one dtype for source and grid)
     cases = {c[0].split()[0]: c for c in k7_cases(bf)}
     _, src, grid, cot, g_geo = cases["window"]
-    t_dsrc = (cuda_ms(lambda: khs.hat_sample_dsrc(grid, cot, FACE, FACE,
+    dsrc = khs.hat_sample_dsrc(grid, cot, FACE, FACE, *g_geo)
+    src32 = src.float().permute(0, 3, 1, 2).contiguous()
+    g4 = crop_grid(grid, *g_geo, FACE, FACE)
+    cot32 = cot.float().transpose(1, 2)[:, :, None].contiguous()
+    backward = torch.ops.aten.grid_sampler_2d_backward
+    row("hat_sample_dsrc",
+        cuda_ms(lambda: khs.hat_sample_dsrc(grid, cot, FACE, FACE, *g_geo)),
+        cuda_ms(lambda: khs.hat_sample_dsrc_plain(grid, cot, FACE, FACE,
                                                   *g_geo)),
-              cuda_ms(lambda: khs.hat_sample_dsrc_plain(grid, cot, FACE, FACE,
-                                                        *g_geo)))
+        cuda_ms(lambda: backward(cot32, src32, g4, 0, 0, False,
+                                 [True, False])),
+        8.0 * cot.numel(), nbytes(grid, cot, dsrc), "f32")
     _, src, grid, cot, g_geo = cases["points"]
-    t_dgrid = (cuda_ms(lambda: khs.hat_sample_dgrid(src, grid, cot, *g_geo)),
-               cuda_ms(lambda: khs.hat_sample_dgrid_plain(src, grid, cot,
-                                                          *g_geo)))
-    log(f"# time K7 hat_sample_dsrc bf16 B=8 window P={wh * ww}: kernel "
-        f"{t_dsrc[0]:.4f} ms, plain {t_dsrc[1]:.4f} ms")
-    log(f"# time K7 hat_sample_dgrid bf16 B=8 points "
-        f"S={grid.shape[1]}: kernel {t_dgrid[0]:.4f} ms, plain "
-        f"{t_dgrid[1]:.4f} ms")
-    a = k1_args(bf, frames=1)
-    a = (fourier_embed(ens.reshape(-1, 2), 10).to(bf),) + a[1:]
-    t_k1b = (cuda_ms(lambda: kmlp.fused_mlp(*a)),
-             cuda_ms(lambda: kmlp.fused_mlp_plain(*a)))
-    log(f"# time K1b bf16 one frame N={4 * LIP_H * LIP_W}: kernel "
-        f"{t_k1b[0]:.3f} ms, plain {t_k1b[1]:.3f} ms")
+    dgrid = khs.hat_sample_dgrid(src, grid, cot, *g_geo)
+    src32 = src.float().permute(0, 3, 1, 2).contiguous()
+    g4 = crop_grid(grid, *g_geo, FACE, FACE)
+    cot32 = cot.float().transpose(1, 2)[:, :, None].contiguous()
+    # the points read 4 taps each of the source, not the whole frame
+    row("hat_sample_dgrid",
+        cuda_ms(lambda: khs.hat_sample_dgrid(src, grid, cot, *g_geo)),
+        cuda_ms(lambda: khs.hat_sample_dgrid_plain(src, grid, cot, *g_geo)),
+        cuda_ms(lambda: backward(cot32, src32, g4, 0, 0, False,
+                                 [False, True])),
+        16.0 * cot.numel(),
+        min(nbytes(src), 4 * nbytes(cot)) + nbytes(grid, cot, dgrid), "f32")
+    del cases, src, src32, dsrc
+
+    # the U-Net entry points at 500x500, batch 8
+    for name, fn in (("apply_infer_hcw (10 K4)", unet_light.apply_infer_hcw),
+                     ("apply_infer_pallas (10 K6)",
+                      unet_light.apply_infer_pallas),
+                     ("apply_infer_dconv (5 K5)", unet_light.apply_infer_dconv),
+                     ("apply_infer_fused (5 K3)", unet_light.apply_infer_fused),
+                     ("apply (bf16 cuDNN)",
+                      lambda p, s, x: unet_light.apply(p, s, x)[0])):
+        ms = cuda_ms(lambda: fn(up_bf, us_bf, ux), iters=5, warmup=1)
+        log(f"# time U-Net {name} bf16 B=8 {FACE}x{FACE}: {ms:.3f} ms = "
+            f"{8000 / ms:.1f} frames/s")
+    del ux
 
     # the train step at batch 8, bf16, kernel path and plain path in turns
     draws = ts.draw_noise(st, TRAIN_B, device=dev, generator=tgen)
@@ -655,15 +968,17 @@ def main() -> int:
 
     # the plain path's profile measures what the plain K2/K7 versions
     # cost inside the step, where dsrc's cotangent is zero off the lip box
-    dev_k = profile_train_step(lambda: step(state, tbatch, draws),
-                               f"train step bf16 B={TRAIN_B}", t_train[True])
-    dev_p = profile_train_step(lambda: plain_step(state, tbatch, draws),
-                               f"plain-path train step bf16 B={TRAIN_B}",
-                               t_train[False])
+    dev_k = profile_steps(lambda: step(state, tbatch, draws),
+                          f"train step bf16 B={TRAIN_B}", t_train[True])
+    dev_p = profile_steps(lambda: plain_step(state, tbatch, draws),
+                          f"plain-path train step bf16 B={TRAIN_B}",
+                          t_train[False])
     log(f"# profile device time per step, plain path minus kernel path: "
         f"{dev_p - dev_k:.3f} ms")
 
-    for bsz in (8, 64):
+    # serving throughput: the Renderer (full-frame U-Net) and the
+    # StaticSceneRenderer (U-Net on the crop) at the same batches
+    for bsz in (8, 32, 64):
         bb = batch if bsz == 8 else {
             k: v.repeat(bsz // 8, *([1] * (v.dim() - 1)))
             for k, v in batch.items()}
@@ -678,52 +993,44 @@ def main() -> int:
         log(f"# slice bf16 batch {bsz}: {ms:.2f} ms/batch = "
             f"{bsz * 1000 / ms:.1f} frames/s (plain path {pms:.2f} ms = "
             f"{bsz * 1000 / pms:.1f} frames/s) on {card}")
+        if bsz <= 32:
+            sms = cuda_ms(lambda: static(bb["audio"], bb["index"]),
+                          iters=iters, warmup=1)
+            log(f"# static scene bf16 batch {bsz}: {sms:.2f} ms/batch = "
+                f"{bsz * 1000 / sms:.1f} frames/s ({ms / sms:.2f}x the "
+                f"Renderer) on {card}")
+        if bsz == 8:
+            profile_steps(lambda: renderer(bb, geo["lip_x"], geo["lip_y"]),
+                          "Renderer bf16 batch 8", ms, steps=3)
+            profile_steps(lambda: static(bb["audio"], bb["index"]),
+                          "static scene bf16 batch 8", sms, steps=3)
         del bb
 
-    kernels = [
-        {"name": "fused_mlp", "route": "cuda",
-         "source": "speech2lip_tpu_torch/csrc/fused_mlp.cu",
-         "path": "render",
-         "replaces": "speech2lip_tpu/ops/pallas/fused_mlp.py:80",
-         "launches": launches["fused_mlp"],
-         "max_abs_err": errs[("fused_mlp", bf)],
-         "ms": t_k1[0], "plain_ms": t_k1[1]},
-        {"name": "window_sample", "route": "cuda",
-         "source": "speech2lip_tpu_torch/csrc/window_sample.cu",
-         "path": "render",
-         "replaces": "speech2lip_tpu/ops/pallas/window_sample.py:114",
-         "launches": launches["window_sample"],
-         "max_abs_err": errs[("window_sample", bf)],
-         "ms": t_k2[0], "plain_ms": t_k2[1]},
-        {"name": "fused_block", "route": "cuda",
-         "source": "speech2lip_tpu_torch/csrc/fused_block.cu",
-         "path": "render",
-         "replaces": "speech2lip_tpu/ops/pallas/conv_hcw.py:867",
-         "launches": launches["fused_block"],
-         "max_abs_err": errs[("fused_block", bf)],
-         "ms": t_k3[0], "plain_ms": t_k3[1]},
-        {"name": "fused_mlp_one_frame", "route": "cuda",
-         "source": "speech2lip_tpu_torch/csrc/fused_mlp.cu",
-         "replaces": "speech2lip_tpu/ops/pallas/fused_mlp.py:153",
-         "path": "render_pixels",
-         "launches": launches["fused_mlp_one_frame"],
-         "max_abs_err": errs[("fused_mlp_one_frame", bf)],
-         "ms": t_k1b[0], "plain_ms": t_k1b[1]},
-        {"name": "hat_sample_dsrc", "route": "cuda",
-         "source": "speech2lip_tpu_torch/csrc/hat_sample.cu",
-         "replaces": "speech2lip_tpu/ops/pallas/hat_sample.py:143",
-         "path": "train",
-         "launches": launches["hat_sample_dsrc"],
-         "max_abs_err": errs[("hat_sample_dsrc", bf)],
-         "ms": t_dsrc[0], "plain_ms": t_dsrc[1]},
-        {"name": "hat_sample_dgrid", "route": "cuda",
-         "source": "speech2lip_tpu_torch/csrc/hat_sample.cu",
-         "replaces": "speech2lip_tpu/ops/pallas/hat_sample.py:174",
-         "path": "train",
-         "launches": launches["hat_sample_dgrid"],
-         "max_abs_err": errs[("hat_sample_dgrid", bf)],
-         "ms": t_dgrid[0], "plain_ms": t_dgrid[1]},
-    ]
+    pallas = "speech2lip_tpu/ops/pallas/"
+    kernels = []
+    for name, source, replaces, path in (
+            ("fused_mlp", "fused_mlp.cu", "fused_mlp.py:80", "render"),
+            ("window_sample", "window_sample.cu", "window_sample.py:114",
+             "render"),
+            ("fused_block", "fused_block.cu", "conv_hcw.py:867", "render"),
+            ("fused_mlp_one_frame", "fused_mlp.cu", "fused_mlp.py:153",
+             "render_pixels"),
+            ("hat_sample_dsrc", "hat_sample.cu", "hat_sample.py:143", "train"),
+            ("hat_sample_dgrid", "hat_sample.cu", "hat_sample.py:174",
+             "train"),
+            ("conv3x3_hcw", "fused_block.cu", "conv_hcw.py:207",
+             "apply_infer_hcw"),
+            ("double_conv_hcw", "double_conv.cu", "conv_hcw.py:403",
+             "apply_infer_dconv"),
+            ("conv3x3_infer", "fused_block.cu", "conv_block.py:63",
+             "apply_infer_pallas")):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"speech2lip_tpu_torch/csrc/{source}",
+                        "replaces": pallas + replaces, "path": path,
+                        "launches": launches[name],
+                        "max_abs_err": errs[(name, bf)], **rows[name]})
+    require(all(k["launches"] > 0 for k in kernels),
+            "a kernel was not launched on its path")
     log(f"# train bf16 kernel vs plain path worst rel {train_err:.3g}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of speech2lip_tpu, held against the JAX package.
 
-First slice: the inference renderer (``infer.renderer``), whose lip MLP,
-windowed warp and post-fusion U-Net blocks run through hand-written CUDA
+The inference renderer (``infer.renderer``), the static-scene serving
+renderer (``infer.static_scene``), the U-Net's inference entry points and
+the training step (``train``), whose TPU kernels run as hand-written CUDA
 kernels for Hopper (``ops/kernels``, sources in ``csrc``).  The package
-imports no JAX; its only imports from ``speech2lip_tpu`` are the numpy-only
-``data.synthetic`` and ``data.windows`` modules.
+imports neither JAX nor anything of ``speech2lip_tpu``: what it needs of
+the JAX package's numpy-only modules it keeps as its own copy (``data``).
 """

@@ -2,10 +2,15 @@
 // with the block's input fusions.  Replaces the Pallas kernel
 // speech2lip_tpu/ops/pallas/conv_hcw.py (fused_block_hcw ->
 // _fused_block_impl -> _make_fused_kernel); a block is two launches of
-// this kernel (ops/kernels/fused_block.py).
+// this kernel (ops/kernels/fused_block.py).  The same kernel with no
+// upsample source and no pool is the plain conv3x3 + scale/bias [+ ReLU]
+// of K4 (conv_hcw.py:conv3x3_hcw) and K6 (conv_block.py:conv3x3_infer),
+// entered through conv3x3_affine_* (ops/kernels/conv_hcw.py and
+// conv_block.py); their TPU layouts (haloed HCW, 128-lane and 16-channel
+// padding, row-shifted input views) are not carried over.
 //
 //   in  = concat(x [B,H,W,c0], upsample_align_corners(lo [B,hl,wl,c1]))
-//   out = relu(conv3x3(in, w) * scale + bias)          [B,H,W,cout], NHWC
+//   out = relu?(conv3x3(in, w) * scale + bias)         [B,H,W,cout], NHWC
 //   pool (optional) = maxpool2x2(out)                  [B,H/2,W/2,cout]
 //
 // The upsample and the concat happen while the input tile is loaded, so
@@ -20,7 +25,8 @@
 // small tiles; 16x16 tiles measured slower.  The mid activation between a
 // block's two convs goes through device memory: its traffic is a few
 // percent of the block's time at May geometry, while keeping it on chip
-// would recompute the mid tile's 1-pixel halo (+41% conv1 work at 8x16).
+// would recompute the mid tile's 1-pixel halo (+41% conv1 work at 8x16;
+// csrc/double_conv.cu is that design, for K5).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -42,6 +48,7 @@ struct ConvArgs {
   T* out;            // [B, h, wd, cout]
   T* pool;           // [B, h/2, wd/2, cout] or null
   int c0, c1, hl, wl, h, wd;
+  int relu;          // apply the ReLU in the epilogue
 };
 
 template <typename T, int kCout>
@@ -178,7 +185,7 @@ __global__ void __launch_bounds__(32 * kTileH) conv3x3_kernel(ConvArgs<T> a) {
     __syncthreads();
   }
 
-  // epilogue: accumulators -> shared stage -> BN scale/bias + ReLU -> out
+  // epilogue: accumulators -> shared stage -> BN scale/bias [+ ReLU] -> out
 #pragma unroll
   for (int j = 0; j < kFrags; ++j)
     wmma::store_matrix_sync(stage + warp * 16 * L::kLdS + j * 16, acc[j], L::kLdS,
@@ -187,7 +194,8 @@ __global__ void __launch_bounds__(32 * kTileH) conv3x3_kernel(ConvArgs<T> a) {
   for (int i = threadIdx.x; i < kTileH * kTileW * kCout; i += L::kThreads) {
     const int n = i % kCout, pix = i / kCout;
     const int y = ty0 + pix / kTileW, x = tx0 + pix % kTileW;
-    const float v = fmaxf(stage[pix * L::kLdS + n] * a.scale[n] + a.bias[n], 0.f);
+    float v = stage[pix * L::kLdS + n] * a.scale[n] + a.bias[n];
+    if (a.relu) v = fmaxf(v, 0.f);
     stage[pix * L::kLdS + n] = v;
     if (y < a.h && x < a.wd) a.out[(((size_t)b * a.h + y) * a.wd + x) * kCout + n] = M::from_float(v);
   }
@@ -225,10 +233,11 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 template <typename T>
 int launch(const void* x, int c0, const void* lo, int c1, int hl, int wl, const void* w,
            const void* scale, const void* bias, void* out, void* pool, int b, int h, int wd,
-           int cout, void* stream) {
-  if (b <= 0 || b > 65535 || h < 2 || wd < 2 || c0 <= 0 || c1 < 0 ||
-      (c1 > 0 && (lo == nullptr || hl < 2 || wl < 2)) || !aligned16(x) || !aligned16(w) ||
-      (lo != nullptr && !aligned16(lo)))
+           int cout, int relu, void* stream) {
+  // the upsample needs two taps a side; a plain conv takes any size
+  if (b <= 0 || b > 65535 || h < 1 || wd < 1 || c0 <= 0 || c1 < 0 ||
+      (c1 > 0 && (lo == nullptr || hl < 2 || wl < 2 || h < 2 || wd < 2)) || !aligned16(x) ||
+      !aligned16(w) || (lo != nullptr && !aligned16(lo)))
     return (int)cudaErrorInvalidValue;
   ConvArgs<T> a;
   a.x = static_cast<const T*>(x);
@@ -244,10 +253,12 @@ int launch(const void* x, int c0, const void* lo, int c1, int hl, int wl, const 
   a.wl = wl;
   a.h = h;
   a.wd = wd;
+  a.relu = relu;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (cout) {
     case 64: return launch_cout<T, 64>(a, b, s);
     case 128: return launch_cout<T, 128>(a, b, s);
+    case 256: return launch_cout<T, 256>(a, b, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -259,13 +270,28 @@ extern "C" int conv3x3_bn_relu_bf16(const void* x, int c0, const void* lo, int c
                                     void* out, void* pool, int b, int h, int wd, int cout,
                                     void* stream) {
   return launch<__nv_bfloat16>(x, c0, lo, c1, hl, wl, w, scale, bias, out, pool, b, h, wd,
-                               cout, stream);
+                               cout, 1, stream);
 }
 
 extern "C" int conv3x3_bn_relu_f32(const void* x, int c0, const void* lo, int c1, int hl,
                                    int wl, const void* w, const void* scale, const void* bias,
                                    void* out, void* pool, int b, int h, int wd, int cout,
                                    void* stream) {
-  return launch<float>(x, c0, lo, c1, hl, wl, w, scale, bias, out, pool, b, h, wd, cout,
+  return launch<float>(x, c0, lo, c1, hl, wl, w, scale, bias, out, pool, b, h, wd, cout, 1,
                        stream);
+}
+
+// out = relu?(conv3x3(x, w, pad 1) * scale + bias): K4 and K6
+extern "C" int conv3x3_affine_bf16(const void* x, const void* w, const void* scale,
+                                   const void* bias, void* out, int b, int h, int wd, int cin,
+                                   int cout, int relu, void* stream) {
+  return launch<__nv_bfloat16>(x, cin, nullptr, 0, 0, 0, w, scale, bias, out, nullptr, b, h,
+                               wd, cout, relu, stream);
+}
+
+extern "C" int conv3x3_affine_f32(const void* x, const void* w, const void* scale,
+                                  const void* bias, void* out, int b, int h, int wd, int cin,
+                                  int cout, int relu, void* stream) {
+  return launch<float>(x, cin, nullptr, 0, 0, 0, w, scale, bias, out, nullptr, b, h, wd, cout,
+                       relu, stream);
 }

@@ -84,13 +84,35 @@ def render_face_batch(params, unet_params, unet_state, batch: Dict[str, Any],
     return {"lip": rgb_lip, "face": face.float()}
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device a renderer runs on: the card unless the caller names
+    another (``device="cpu"``); raises when the card is asked for and
+    there is none."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                           "plain versions on the CPU")
+    return device
+
+
+def cast_tree(tree, device, dtype):
+    """The tree's tensors on ``device``, float32 leaves cast to ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [cast_tree(v, device, dtype) for v in tree]
+    t = torch.as_tensor(tree).to(device)
+    return t.to(dtype) if t.dtype == torch.float32 else t
+
+
 class Renderer:
     """Renderer bound to a config's geometry and a device.
 
-    Casts the float32 parameters to ``model.compute_dtype`` once.  On a
-    CUDA device every batch runs through the kernels K1-K3 and a kernel
-    that fails raises: there is no fallback.  On the CPU the kernel
-    wrappers run their plain versions.
+    Runs on the card unless ``device`` names another.  Casts the float32
+    parameters to ``model.compute_dtype`` once.  On a CUDA device every
+    batch runs through the kernels K1-K3 and a kernel that fails raises:
+    there is no fallback.  On the CPU the kernel wrappers run their plain
+    versions.
     """
 
     def __init__(self, cfg: Dict[str, Any], params, unet_params, unet_state,
@@ -104,17 +126,9 @@ class Renderer:
         self.window = tuple(window) if window is not None else None
         self.compute_dtype = _DTYPES[cfg["model"].get("compute_dtype",
                                                       "float32")]
-        self.device = torch.device(device if device is not None else "cpu")
-
-        def cast(tree):
-            if isinstance(tree, dict):
-                return {k: cast(v) for k, v in tree.items()}
-            if isinstance(tree, (list, tuple)):
-                return [cast(v) for v in tree]
-            t = tree.to(self.device)
-            return t.to(self.compute_dtype) if t.dtype == torch.float32 else t
-
-        self.params = (cast(params), cast(unet_params), cast(unet_state))
+        self.device = resolve_device(device)
+        self.params = tuple(cast_tree(t, self.device, self.compute_dtype)
+                            for t in (params, unet_params, unet_state))
 
     def __call__(self, batch: Dict[str, Any], lip_x: int, lip_y: int):
         p, up, us = self.params

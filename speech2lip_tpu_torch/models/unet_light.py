@@ -4,6 +4,12 @@
 2-down/2-up U-Net, 64 -> 128 -> 128 channels, align-corners bilinear
 upsampling, DoubleConv = (conv3x3 no-bias -> BN -> ReLU) x 2, 1x1 output
 conv.  NHWC, HWIO kernels, the JAX package's parameter tree.
+
+``apply`` is the plain forward and the oracle of the four inference entry
+points, each of which computes the same function through kernels:
+``apply_infer_fused`` (five K3 blocks), ``apply_infer_hcw`` (ten K4
+convs), ``apply_infer_pallas`` (ten K6 convs) and ``apply_infer_dconv``
+(five K5 DoubleConvs).
 """
 
 from __future__ import annotations
@@ -11,7 +17,10 @@ from __future__ import annotations
 import torch
 
 from speech2lip_tpu_torch.ops import nn as tnn
-from speech2lip_tpu_torch.ops.kernels.conv_block import fold_bn
+from speech2lip_tpu_torch.ops.kernels.conv_block import (double_conv_infer,
+                                                         fold_bn)
+from speech2lip_tpu_torch.ops.kernels.conv_hcw import (conv3x3_hcw,
+                                                       double_conv_hcw)
 from speech2lip_tpu_torch.ops.kernels.fused_block import fused_block
 
 
@@ -29,24 +38,103 @@ def _double_conv(params, state, x, train: bool = False):
     return tnn.relu(x), {"bn1": s1, "bn2": s2}
 
 
-def apply(params, state, x, train: bool = False):
+def _up2x(x, out_h: int, out_w: int):
+    """Exact-2x bilinear upsample: out[2i] = in[i], out[2i+1] = (in[i] +
+    in[i+1]) / 2, edge-clamped, cropped to out_h x out_w.  Unlike
+    align_corners at a ratio that is not an integer, it is translation-
+    equivariant: a crop of the input aligned to 2 upsamples to the matching
+    crop of the output (the static-scene serving path needs that)."""
+    b, h, w, c = x.shape
+    xn = torch.cat([x[:, 1:], x[:, -1:]], dim=1)
+    rows = torch.stack([x, 0.5 * (x + xn)], dim=2).reshape(b, 2 * h, w, c)
+    cn = torch.cat([rows[:, :, 1:], rows[:, :, -1:]], dim=2)
+    cols = torch.stack([rows, 0.5 * (rows + cn)], dim=3).reshape(
+        b, 2 * h, 2 * w, c)
+    return cols[:, :out_h, :out_w]
+
+
+def apply(params, state, x, train: bool = False, exact2x: bool = False):
     """Plain forward: x [B, H, W, C] -> (logits [B, H, W, n_classes],
     new BN state).  ``train`` normalises with batch statistics and returns
     the updated running statistics; otherwise the state comes back as it
-    went in."""
+    went in.  ``exact2x`` upsamples with ``_up2x`` instead of align-corners
+    bilinear."""
+    up = _up2x if exact2x else tnn.upsample_bilinear
     new = {}
     x1, new["inc"] = _double_conv(params["inc"], state["inc"], x, train)
     x2, new["down1"] = _double_conv(params["down1"], state["down1"],
                                     tnn.maxpool2d(x1), train)
     x3, new["down2"] = _double_conv(params["down2"], state["down2"],
                                     tnn.maxpool2d(x2), train)
-    u = tnn.upsample_bilinear(x3, x2.shape[1], x2.shape[2])
+    u = up(x3, x2.shape[1], x2.shape[2])
     u, new["up1"] = _double_conv(params["up1"], state["up1"],
                                  torch.cat([x2, u], dim=-1), train)
-    u = tnn.upsample_bilinear(u, x1.shape[1], x1.shape[2])
+    u = up(u, x1.shape[1], x1.shape[2])
     u, new["up2"] = _double_conv(params["up2"], state["up2"],
                                  torch.cat([x1, u], dim=-1), train)
     return tnn.conv2d(params["outc"], u, padding=0), new
+
+
+def _infer(params, state, x, double_conv):
+    """Inference forward with each DoubleConv run by ``double_conv(x, w1,
+    scale1, bias1, w2, scale2, bias2)`` on the folded eval BatchNorm; the
+    pools, align-corners upsamples, skip concats and the 1x1 ``outc`` conv
+    are plain ops, as in ``apply``."""
+    def dc(name, v):
+        p, s = params[name], state[name]
+        s1, b1 = fold_bn(p["bn1"], s["bn1"])
+        s2, b2 = fold_bn(p["bn2"], s["bn2"])
+        return double_conv(v.contiguous(), p["conv1"]["w"].contiguous(),
+                           s1.float(), b1.float(),
+                           p["conv2"]["w"].contiguous(), s2.float(),
+                           b2.float())
+
+    x1 = dc("inc", x)
+    x2 = dc("down1", tnn.maxpool2d(x1))
+    x3 = dc("down2", tnn.maxpool2d(x2))
+    u = tnn.upsample_bilinear(x3, x2.shape[1], x2.shape[2])
+    u = dc("up1", torch.cat([x2, u], dim=-1))
+    u = tnn.upsample_bilinear(u, x1.shape[1], x1.shape[2])
+    u = dc("up2", torch.cat([x1, u], dim=-1))
+    return tnn.conv2d(params["outc"], u, padding=0)
+
+
+def apply_infer_hcw(params, state, x):
+    """Inference forward with every DoubleConv as two K4 launches
+    (``conv3x3_hcw``), ten per call.  x [B, H, W, C] with H a multiple of
+    4 (the JAX package's exact-2x upsample asserts it) -> [B, H, W,
+    n_classes]; computes ``apply(train=False)``.
+
+    The JAX version pools its haloed buffer into a 128-lane pad; where W/2
+    is odd, the pooled pad lane right of the last column holds the max of
+    the dropped last column and a zero pad lane instead of 0, and down2's
+    conv1 reads it as its right border (a small gap to ``apply`` in the
+    last bottleneck column).  The port keeps ``apply``'s zero border."""
+    h = x.shape[1]
+    if h % 4:
+        raise ValueError(f"apply_infer_hcw: H must be a multiple of 4, "
+                         f"got {h}")
+
+    def pair(v, w1, s1, b1, w2, s2, b2):
+        return conv3x3_hcw(conv3x3_hcw(v, w1, s1, b1), w2, s2, b2)
+
+    return _infer(params, state, x, pair)
+
+
+def apply_infer_pallas(params, state, x):
+    """Inference forward with every DoubleConv as two K6 launches
+    (``double_conv_infer``), ten per call; any size.  Computes
+    ``apply(train=False)``."""
+    return _infer(params, state, x, double_conv_infer)
+
+
+def apply_infer_dconv(params, state, x):
+    """Inference forward with every DoubleConv as one K5 launch
+    (``double_conv_hcw``: the conv1 output stays in shared memory), five
+    per call; any size.  Computes ``apply(train=False)``.  The JAX package
+    has no such entry point: its one caller of ``double_conv_hcw`` is a
+    hardware test."""
+    return _infer(params, state, x, double_conv_hcw)
 
 
 def apply_infer_fused(params, state, x):

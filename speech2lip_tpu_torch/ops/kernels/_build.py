@@ -42,6 +42,13 @@ SIGNATURES = {
                              _I, _I, _I, _I, _P],
     "conv3x3_bn_relu_f32": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _P],
+    # (x, w, scale, bias, out, b, h, wd, cin, cout, relu, stream)
+    "conv3x3_affine_bf16": [_P] * 5 + [_I] * 6 + [_P],
+    "conv3x3_affine_f32": [_P] * 5 + [_I] * 6 + [_P],
+    # (x, w1, scale1, bias1, w2, scale2, bias2, out, b, h, wd, cin, cmid,
+    #  cout, stream)
+    "double_conv_bf16": [_P] * 8 + [_I] * 6 + [_P],
+    "double_conv_f32": [_P] * 8 + [_I] * 6 + [_P],
     # (grid, g, dsrc, b, hs, ws, c, p, y_off, x_off, height, width, stream)
     "hat_sample_dsrc_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                              _I, _P],

@@ -10,6 +10,11 @@ emits the pooled output from its epilogue.  On the H100 each launch is an
 implicit GEMM on the tensor cores over 8x16-pixel tiles, bound by its
 un-pipelined input and weight loads (16 bytes a thread) and tensor-core
 issue at that tile size.
+
+``conv3x3_affine`` launches the same kernel as a plain conv3x3 + per-channel
+scale/bias [+ ReLU] (no upsample source, no pool): the kernel behind K4
+(``conv_hcw.conv3x3_hcw``) and K6 (``conv_block.conv3x3_infer``), whose
+wrappers count their own launches.
 """
 
 from __future__ import annotations
@@ -23,10 +28,17 @@ from speech2lip_tpu_torch.ops.kernels import _build
 launches = 0  # fused_block calls that launched their kernels
 
 
-def _conv_bn_relu(x, w, scale, bias):
+def _conv_bn_relu(x, w, scale, bias, relu: bool = True):
     y = F.conv2d(x.permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1),
                  padding=1)
-    return torch.relu(y.permute(0, 2, 3, 1) * scale + bias)
+    y = y.permute(0, 2, 3, 1) * scale.float() + bias.float()
+    return torch.relu(y) if relu else y
+
+
+def conv3x3_affine_plain(x, w, scale, bias, relu: bool = True):
+    """relu?(conv3x3(x, w, pad 1) * scale + bias) as PyTorch ops: a float32
+    conv, rounded to x's dtype as the kernel stores it.  Any shape."""
+    return _conv_bn_relu(x.float(), w, scale, bias, relu).to(x.dtype)
 
 
 def fused_block_plain(x, w1, scale1, bias1, w2, scale2, bias2, up=None,
@@ -46,10 +58,48 @@ def fused_block_plain(x, w1, scale1, bias1, w2, scale2, bias2, up=None,
     return out
 
 
-def _check(t, dt, device, name):
+def _check(t, dt, device, name, what="fused_block"):
     if t.dtype != dt or t.device != device or not t.is_contiguous():
-        raise ValueError(f"fused_block: {name} must be contiguous {dt} on "
+        raise ValueError(f"{what}: {name} must be contiguous {dt} on "
                          f"{device}, got {t.dtype} on {t.device}")
+
+
+def check_inputs(what, x, weights, affine):
+    """Raise unless x and the conv weights are contiguous bf16 or float32
+    tensors of one dtype on x's CUDA device, 16-byte aligned, and the
+    scale/bias vectors contiguous float32 there."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{what}: dtype {x.dtype}")
+    for i, t in enumerate((x,) + tuple(weights)):
+        _check(t, x.dtype, x.device, "x" if i == 0 else f"w{i}", what)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: tensors must start 16-byte aligned")
+    for i, t in enumerate(affine):
+        _check(t, torch.float32, x.device, f"scale/bias {i}", what)
+
+
+def conv3x3_affine(x, w, scale, bias, relu: bool = True):
+    """Launch the conv kernel as relu?(conv3x3(x, w, pad 1) * scale + bias)
+    on CUDA tensors: x [B, H, W, Cin], w [3, 3, Cin, Cout] HWIO in x's
+    dtype, Cout in {64, 128, 256}; scale/bias float32 [Cout].  Validates
+    and raises on what the kernel does not take; counts nothing."""
+    check_inputs("conv3x3_affine", x, (w,), (scale, bias))
+    b, h, wd, cin = x.shape
+    cout = w.shape[3]
+    if (w.shape[:3] != (3, 3, cin) or cout not in (64, 128, 256)
+            or scale.shape != (cout,) or bias.shape != (cout,)):
+        raise ValueError(f"conv3x3_affine: unsupported shapes x "
+                         f"{tuple(x.shape)} w {tuple(w.shape)}")
+    lib = _build.library()
+    fn = (lib.conv3x3_affine_bf16 if x.dtype == torch.bfloat16
+          else lib.conv3x3_affine_f32)
+    out = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
+    _build.check(fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                    bias.data_ptr(), out.data_ptr(), b, h, wd, cin, cout,
+                    int(relu), _build.stream_ptr(x)), "conv3x3_affine")
+    return out
 
 
 def _launch(fn, x, lo, w, scale, bias, out, pool_out):
@@ -78,26 +128,17 @@ def fused_block(x, w1, scale1, bias1, w2, scale2, bias2, up=None,
     if x.device.type == "cpu":
         return fused_block_plain(*args, up=up, pool=pool)
     global launches
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_block: unsupported device {x.device}")
+    check_inputs("fused_block", x, (w1, w2) + ((up,) if up is not None
+                                                else ()),
+                 (scale1, bias1, scale2, bias2))
     dt = x.dtype
-    if dt not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"fused_block: dtype {dt}")
     b, h, wd, c0 = x.shape
     c1 = 0
-    for t, name in ((x, "x"), (w1, "w1"), (w2, "w2")):
-        _check(t, dt, x.device, name)
-    for t, name in ((scale1, "scale1"), (bias1, "bias1"),
-                    (scale2, "scale2"), (bias2, "bias2")):
-        _check(t, torch.float32, x.device, name)
     if up is not None:
-        _check(up, dt, x.device, "up")
         if up.shape[0] != b or up.shape[1] < 2 or up.shape[2] < 2:
             raise ValueError(f"fused_block: up {tuple(up.shape)}")
         c1 = up.shape[3]
     cmid, cout = w1.shape[3], w2.shape[3]
-    if any(t.data_ptr() % 16 for t in (x, w1, w2) + ((up,) if c1 else ())):
-        raise ValueError("fused_block: tensors must start 16-byte aligned")
     if (w1.shape[:3] != (3, 3, c0 + c1) or w2.shape[:3] != (3, 3, cmid)
             or cmid not in (64, 128) or cout not in (64, 128)
             or scale1.shape != (cmid,) or bias1.shape != (cmid,)

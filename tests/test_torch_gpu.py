@@ -13,8 +13,11 @@ import torch
 
 from speech2lip_tpu_torch import weights
 from speech2lip_tpu_torch.models import talking_face as ttf
+from speech2lip_tpu_torch.models import unet_light as tunet
 from speech2lip_tpu_torch.ops.coords import get_coords
 from speech2lip_tpu_torch.ops.embedders import fourier_embed
+from speech2lip_tpu_torch.ops.kernels import conv_block as kcb
+from speech2lip_tpu_torch.ops.kernels import conv_hcw as kch
 from speech2lip_tpu_torch.ops.kernels import fused_block as kfb
 from speech2lip_tpu_torch.ops.kernels import fused_mlp as kmlp
 from speech2lip_tpu_torch.ops.kernels import hat_sample as khs
@@ -114,6 +117,106 @@ def test_fused_block_kernel(cuda, dtype, block, size, pool):
     ref = kfb.fused_block_plain(x, *args, up=lo, pool=pool)
     for g_, r_ in zip(got if pool else (got,), ref if pool else (ref,)):
         assert _rel_err(g_, r_) < BOUND[dtype]
+
+
+# (cin, cout) of the U-Net's ten convs, inc to up2
+UNET_CONVS = [(3, 64), (64, 64), (64, 128), (128, 128), (128, 128),
+              (128, 128), (256, 128), (128, 64), (128, 64), (64, 64)]
+# (cin, cmid, cout) of its five DoubleConvs
+UNET_DCONVS = [(3, 64, 64), (64, 128, 128), (128, 128, 128),
+               (256, 128, 64), (128, 64, 64)]
+
+
+def _conv_args(cuda, dtype, cin, cout, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    w = (0.1 * torch.randn(3, 3, cin, cout, device=cuda, generator=g)).to(dtype)
+    scale = 0.5 + torch.rand(cout, device=cuda, generator=g)
+    bias = 0.2 * torch.randn(cout, device=cuda, generator=g)
+    return w, scale, bias
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cin,cout,relu", [c + (True,) for c in UNET_CONVS]
+                         + [(64, 64, False), (16, 256, True),
+                            (256, 256, False)])
+def test_conv3x3_kernels(cuda, dtype, cin, cout, relu):
+    """K4 (conv3x3_hcw) and K6 (conv3x3_infer), one kernel behind two
+    wrappers, at the U-Net's conv shapes on a 37x45 input (no tile
+    multiple), ReLU off and Cout 256 too."""
+    w, scale, bias = _conv_args(cuda, dtype, cin, cout, cin + cout)
+    x = torch.rand(2, 37, 45, cin, device=cuda,
+                   generator=torch.Generator(device=cuda).manual_seed(5)
+                   ).to(dtype)
+    ref = kfb.conv3x3_affine_plain(x, w, scale, bias, relu)
+    before = (kch.conv3x3_launches, kcb.launches)
+    got4 = kch.conv3x3_hcw(x, w, scale, bias, relu)
+    got6 = kcb.conv3x3_infer(x, w, scale, bias, relu)
+    torch.cuda.synchronize()
+    assert (kch.conv3x3_launches, kcb.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    assert _rel_err(got4, ref) < BOUND[dtype]
+    assert torch.equal(got4, got6)
+    if not relu:
+        assert bool((got4 < 0).any())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cin,cmid,cout", UNET_DCONVS)
+@pytest.mark.parametrize("size", [(31, 45), (14, 14)])
+def test_double_conv_kernel(cuda, dtype, cin, cmid, cout, size):
+    """K5 at the U-Net's DoubleConv shapes, on a size that is no multiple
+    of the 14x14 tile and on exactly one tile."""
+    w1, s1, b1 = _conv_args(cuda, dtype, cin, cmid, cin)
+    w2, s2, b2 = _conv_args(cuda, dtype, cmid, cout, cout)
+    x = torch.rand(2, *size, cin, device=cuda,
+                   generator=torch.Generator(device=cuda).manual_seed(6)
+                   ).to(dtype)
+    args = (x, w1, s1, b1, w2, s2, b2)
+    before = kch.double_conv_launches
+    got = kch.double_conv_hcw(*args)
+    torch.cuda.synchronize()
+    assert kch.double_conv_launches == before + 1
+    assert _rel_err(got, kch.double_conv_hcw_plain(*args)) < BOUND[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_unet_entry_points(cuda, dtype):
+    """apply_infer_hcw / _pallas / _dconv against the plain forward, with
+    their launch counts per call (10 K4, 10 K6, 5 K5)."""
+    _, up, us = weights.random_params(0, device=cuda, dtype=dtype)
+    x = torch.rand(2, 36, 52, 3, device=cuda,
+                   generator=torch.Generator(device=cuda).manual_seed(7)
+                   ).to(dtype)
+    ref, _ = tunet.apply(up, us, x)
+    counts = lambda: (kch.conv3x3_launches, kcb.launches,
+                      kch.double_conv_launches)
+    for fn, want in ((tunet.apply_infer_hcw, (10, 0, 0)),
+                     (tunet.apply_infer_pallas, (0, 10, 0)),
+                     (tunet.apply_infer_dconv, (0, 0, 5))):
+        before = counts()
+        got = fn(up, us, x)
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(counts(), before)) == want
+        # bf16: the plain forward rounds after every op, the kernels once
+        # per conv (a few bf16 ulps apart)
+        assert _rel_err(got, ref) < BOUND[dtype], fn.__name__
+
+
+def test_conv_wrappers_raise_on_unsupported_shapes(cuda):
+    x = torch.zeros(1, 8, 8, 16, device=cuda)
+    w, scale, bias = _conv_args(cuda, torch.float32, 16, 96, 0)
+    for fn in (kch.conv3x3_hcw, kcb.conv3x3_infer):
+        with pytest.raises(ValueError):
+            fn(x, w, scale, bias)          # Cout 96 is not instantiated
+        with pytest.raises(ValueError):
+            fn(x, w.bfloat16(), scale, bias)
+    w1, s1, b1 = _conv_args(cuda, torch.float32, 16, 256, 0)
+    w2, s2, b2 = _conv_args(cuda, torch.float32, 256, 64, 0)
+    with pytest.raises(ValueError):
+        kch.double_conv_hcw(x, w1, s1, b1, w2, s2, b2)   # Cmid 256
+    with pytest.raises(ValueError):
+        tunet.apply_infer_hcw(*weights.random_params(0, device=cuda)[1:],
+                              torch.zeros(1, 30, 32, 3, device=cuda))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

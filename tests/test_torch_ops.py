@@ -6,6 +6,7 @@ CPU in float32; tolerances are stated per test.
 
 import subprocess
 import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +27,7 @@ from speech2lip_tpu_torch.ops.kernels import conv_block as tcb
 torch.set_num_threads(2)
 
 TOL = 1e-5  # float32, same formulas; only summation order differs
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def _np(x):
@@ -174,12 +176,39 @@ def test_fold_bn():
 
 
 def test_port_imports_no_jax_or_yaml():
-    code = ("import sys, speech2lip_tpu_torch, "
-            "speech2lip_tpu_torch.infer.renderer, "
-            "speech2lip_tpu_torch.weights, speech2lip_tpu_torch.config\n"
-            "bad = [m for m in ('jax', 'yaml', 'speech2lip_tpu.core.config')"
-            " if m in sys.modules]\n"
-            "assert not bad, bad\n")
+    """Every module of the port, then ``chip_smoke`` (its ``main`` is
+    guarded), imported in a fresh process, leaves no ``jax*``, no ``yaml``
+    and nothing of ``speech2lip_tpu`` in ``sys.modules``; and no import
+    statement anywhere in those files, lazy ones inside functions
+    included, names one of them."""
+    code = r"""
+import ast, importlib, pathlib, pkgutil, sys
+import speech2lip_tpu_torch as pkg
+mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in mods:
+    importlib.import_module(name)
+importlib.import_module("chip_smoke")
+assert len(mods) >= 31, mods
+
+def banned(name):
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "yaml", "speech2lip_tpu")
+
+loaded = [m for m in sys.modules if banned(m)]
+assert not loaded, loaded
+files = [pathlib.Path(sys.modules[m].__file__) for m in mods + ["chip_smoke"]]
+for f in files:
+    for node in ast.walk(ast.parse(f.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        assert not any(banned(n) for n in names), (str(f), names)
+print(len(files))
+"""
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120)
+                         text=True, timeout=120, cwd=ROOT)
     assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= 32
