@@ -155,6 +155,25 @@ def library_conv(x, w, scale, bias):
     return lambda: F.conv2d(xc, wf, bf, padding=1)
 
 
+def k5_weight_bytes(shape, cmid: int, cout: int, tiling: str) -> int:
+    """Weight bytes one K5 launch on x of ``shape`` [B, H, W, Cin] streams
+    from L2: every block reads conv1's weights once per conv1 M pass and
+    conv2's once per conv2 M pass.  ``tiling`` "bf16" is the bf16 body of
+    csrc/double_conv.cu (14x30 output tiles from a 16x32 mid tile at Cmid
+    128, 30x30 from 32x32 in two M passes at Cmid 64, 512 output pixels a
+    conv2 pass); "14x14" the bf16 body before it (as the float32 body
+    still tiles): one pass per conv, 14x14 tiles.  bf16 weights."""
+    b, h, w, cin = shape
+    if tiling == "bf16":
+        th, tw = (14, 30) if cmid == 128 else (30, 30)
+        m1, m2 = (th + 2) // 16, -(-th * tw // 512)
+    else:
+        th = tw = 14
+        m1 = m2 = 1
+    blocks = -(-h // th) * -(-w // tw) * b
+    return blocks * 9 * 2 * (m1 * cin * cmid + m2 * cmid * cout)
+
+
 def named_leaves(tree, prefix=""):
     """[(dotted name, tensor)] in ``train_step.tree_leaves`` order."""
     if isinstance(tree, dict):
@@ -518,6 +537,19 @@ def main() -> int:
         for kname, e in worst.items():
             errs[(kname, dtype)] = e
         torch.cuda.empty_cache()
+
+    # K5's eight instances: registers, local memory (spills land there) and
+    # shared memory; the bf16 body must keep everything on chip
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        for cmid in (64, 128):
+            for cout in (64, 128):
+                at = kch.double_conv_attrs(dtype, cmid, cout)
+                log(f"# K5 attrs {dn} cmid {cmid} cout {cout}: "
+                    f"{at['regs']} registers, {at['local_bytes']} local "
+                    f"bytes, {at['smem_bytes']} shared bytes")
+                require(dtype != torch.bfloat16 or at["local_bytes"] == 0,
+                        f"K5 bf16 cmid {cmid} cout {cout} uses local memory")
 
     # -- phase 3: the main path, three batches through the Renderer --------
     cfg = default_config()
@@ -886,6 +918,7 @@ def main() -> int:
     row("conv3x3_infer", t6, tp, tl, ops, moved, "bf16")
     t5 = tp = tl = ops = 0.0
     moved = 0
+    traffic = [0.0, 0.0]
     for i, (name, args) in enumerate(dconv_cases(bf)):
         x, w1, s1, b1, w2, s2, b2 = args
         k5 = cuda_ms(lambda: kch.double_conv_hcw(*args), iters=5)
@@ -896,15 +929,37 @@ def main() -> int:
         c2 = library_conv(mid, w2, s2, b2)
         lib_ms = cuda_ms(lambda: (c1(), c2()), iters=5)
         tl += lib_ms
-        ops += conv_ops(x, w1.shape[2], w1.shape[3]) + conv_ops(
+        d_ops = conv_ops(x, w1.shape[2], w1.shape[3]) + conv_ops(
             mid, w2.shape[2], w2.shape[3])
-        moved += nbytes(*args) + mid.numel() // mid.shape[3] * \
+        d_moved = nbytes(*args) + mid.numel() // mid.shape[3] * \
             w2.shape[3] * x.element_size()
+        ops += d_ops
+        moved += d_moved
+        d_bound, d_by = bound(d_ops, d_moved, "bf16")
+        wt = [k5_weight_bytes(x.shape, w1.shape[3], w2.shape[3], t)
+              for t in ("bf16", "14x14")]
+        traffic = [traffic[0] + wt[0], traffic[1] + wt[1]]
         log(f"# time DoubleConv {name} {tuple(x.shape)} bf16: K5 {k5:.3f} "
             f"ms, two K4 launches {t_pair[2 * i] + t_pair[2 * i + 1]:.3f} "
-            f"ms, two cuDNN convs {lib_ms:.3f} ms")
+            f"ms, two cuDNN convs {lib_ms:.3f} ms, bound {d_bound:.3f} ms "
+            f"by {d_by}; weights from L2 {wt[0] / 1e9:.3f} GB (14x14 "
+            f"tiles: {wt[1] / 1e9:.3f} GB)")
+    log(f"# time K5 bf16 five DoubleConvs: {t5:.3f} ms against ten K4 "
+        f"launches {sum(t_pair):.3f} ms and two cuDNN convs each {tl:.3f} "
+        f"ms; weights from L2 {traffic[0] / 1e9:.3f} GB (14x14 tiles: "
+        f"{traffic[1] / 1e9:.3f} GB)")
     row("double_conv_hcw", t5, tp, tl, ops, moved, "bf16")
     del mid
+    # float32 K5 (the 3xTF32 WMMA body): a log line only
+    t5_f32 = 0.0
+    for name, args in dconv_cases(torch.float32):
+        k5 = cuda_ms(lambda: kch.double_conv_hcw(*args), iters=3)
+        t5_f32 += k5
+        log(f"# time DoubleConv {name} {tuple(args[0].shape)} float32: K5 "
+            f"{k5:.3f} ms")
+    log(f"# time K5 float32 five DoubleConvs: {t5_f32:.3f} ms")
+    del args
+    torch.cuda.empty_cache()
 
     # K7 at the main path's shapes: dsrc on the window gather, dgrid on
     # the depth-loss points; library: aten.grid_sampler_2d_backward on

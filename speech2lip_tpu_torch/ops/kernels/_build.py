@@ -25,7 +25,9 @@ NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C entry points: name -> argtypes (every pointer and the stream as void*)
+_IP = ctypes.POINTER(ctypes.c_int)
+# C entry points: name -> argtypes (every pointer and the stream as void*,
+# out-parameters as int*)
 SIGNATURES = {
     # (uv, b0, bs, w_ptrs[host array], b_ptrs[host array], w_out, b_out,
     #  out, n, frames, depth, skip_layer, stream)
@@ -49,6 +51,9 @@ SIGNATURES = {
     #  cout, stream)
     "double_conv_bf16": [_P] * 8 + [_I] * 6 + [_P],
     "double_conv_f32": [_P] * 8 + [_I] * 6 + [_P],
+    # (bf16, cmid, cout, regs*, local_bytes*, smem_bytes*): one K5
+    # instance's cudaFuncGetAttributes
+    "double_conv_attrs": [_I, _I, _I, _IP, _IP, _IP],
     # (grid, g, dsrc, b, hs, ws, c, p, y_off, x_off, height, width, stream)
     "hat_sample_dsrc_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                              _I, _P],

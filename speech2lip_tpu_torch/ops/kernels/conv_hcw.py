@@ -15,8 +15,11 @@ arguments are NHWC with no halo.
   ``csrc/double_conv.cu``, the conv1 output kept in shared memory (never
   in device memory) and recomputed on a one-pixel halo per tile, rounded
   to the working dtype before conv2 as the TPU kernel's mid scratch is;
-  Cmid and Cout in {64, 128}.  ``unet_light.apply_infer_dconv`` runs five
-  per U-Net.
+  Cmid and Cout in {64, 128}.  The kernel body is chosen by dtype: bf16
+  runs the cp.async-ring / ldmatrix / mma.sync design, float32 the 3xTF32
+  WMMA one.  ``unet_light.apply_infer_dconv`` runs five per U-Net;
+  ``double_conv_attrs`` reports an instance's registers, local memory and
+  shared memory.
 
 Each has its own launch count.  Their plain versions are float32 convs,
 outputs rounded to x's dtype: ``fused_block.conv3x3_affine_plain`` for K4
@@ -24,6 +27,8 @@ outputs rounded to x's dtype: ``fused_block.conv3x3_affine_plain`` for K4
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -84,3 +89,18 @@ def double_conv_hcw(x, w1, scale1, bias1, w2, scale2, bias2):
                     cin, cmid, cout, _build.stream_ptr(x)), "double_conv_hcw")
     double_conv_launches += 1
     return out
+
+
+def double_conv_attrs(dtype, cmid: int, cout: int) -> dict:
+    """Registers per thread, local-memory bytes per thread and shared-memory
+    bytes per block of the K5 instance for (dtype, cmid, cout), from
+    ``cudaFuncGetAttributes`` (builds the kernels; needs the CUDA
+    runtime)."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"double_conv_attrs: dtype {dtype}")
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    _build.check(_build.library().double_conv_attrs(
+        int(dtype == torch.bfloat16), cmid, cout,
+        *(ctypes.byref(v) for v in vals)), "double_conv_attrs")
+    return dict(zip(("regs", "local_bytes", "smem_bytes"),
+                    (v.value for v in vals)))

@@ -165,7 +165,7 @@ def test_conv3x3_kernels(cuda, dtype, cin, cout, relu):
 @pytest.mark.parametrize("size", [(31, 45), (14, 14)])
 def test_double_conv_kernel(cuda, dtype, cin, cmid, cout, size):
     """K5 at the U-Net's DoubleConv shapes, on a size that is no multiple
-    of the 14x14 tile and on exactly one tile."""
+    of any of its tiles and on a 14x14 input."""
     w1, s1, b1 = _conv_args(cuda, dtype, cin, cmid, cin)
     w2, s2, b2 = _conv_args(cuda, dtype, cmid, cout, cout)
     x = torch.rand(2, *size, cin, device=cuda,
@@ -177,6 +177,51 @@ def test_double_conv_kernel(cuda, dtype, cin, cmid, cout, size):
     torch.cuda.synchronize()
     assert kch.double_conv_launches == before + 1
     assert _rel_err(got, kch.double_conv_hcw_plain(*args)) < BOUND[dtype]
+
+
+def _k5_tile(dtype, cmid):
+    """(rows, cols) of K5's output tile (csrc/double_conv.cu): bf16 14x30
+    at Cmid 128 and 30x30 at Cmid 64, float32 14x14."""
+    if dtype == torch.float32:
+        return 14, 14
+    return (14, 30) if cmid == 128 else (30, 30)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cin,cmid,cout", UNET_DCONVS)
+@pytest.mark.parametrize("edge", ["rows_under_cols_over",
+                                  "rows_over_cols_under", "one_tile"])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_double_conv_kernel_tile_edges(cuda, dtype, cin, cmid, cout, edge,
+                                       batch):
+    """K5 one pixel under and over a multiple of its tile on each axis, and
+    on exactly one tile: a missed mask on the mid's zero padding, the
+    conv2 fragments past the tile or the image edge shows here."""
+    th, tw = _k5_tile(dtype, cmid)
+    size = {"rows_under_cols_over": (2 * th - 1, 2 * tw + 1),
+            "rows_over_cols_under": (2 * th + 1, 2 * tw - 1),
+            "one_tile": (th, tw)}[edge]
+    w1, s1, b1 = _conv_args(cuda, dtype, cin, cmid, cin + 1)
+    w2, s2, b2 = _conv_args(cuda, dtype, cmid, cout, cout + 1)
+    x = torch.rand(batch, *size, cin, device=cuda,
+                   generator=torch.Generator(device=cuda).manual_seed(8)
+                   ).to(dtype)
+    args = (x, w1, s1, b1, w2, s2, b2)
+    before = kch.double_conv_launches
+    got = kch.double_conv_hcw(*args)
+    torch.cuda.synchronize()
+    assert kch.double_conv_launches == before + 1
+    assert _rel_err(got, kch.double_conv_hcw_plain(*args)) < BOUND[dtype]
+
+
+def test_double_conv_bf16_has_no_local_memory(cuda):
+    """Every bf16 K5 instance keeps its accumulators in registers: no
+    spills, no local memory."""
+    for cmid in (64, 128):
+        for cout in (64, 128):
+            attrs = kch.double_conv_attrs(torch.bfloat16, cmid, cout)
+            assert attrs["local_bytes"] == 0, (cmid, cout, attrs)
+            assert 0 < attrs["regs"] <= 255 and attrs["smem_bytes"] > 0
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
