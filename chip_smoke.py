@@ -538,18 +538,21 @@ def main() -> int:
             errs[(kname, dtype)] = e
         torch.cuda.empty_cache()
 
-    # K5's eight instances: registers, local memory (spills land there) and
-    # shared memory; the bf16 body must keep everything on chip
+    # registers, local memory (spills land there) and shared memory of K5's
+    # eight instances and of the six of the conv kernel behind K3/K4/K6;
+    # the bf16 bodies must keep everything on chip
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
-        for cmid in (64, 128):
-            for cout in (64, 128):
-                at = kch.double_conv_attrs(dtype, cmid, cout)
-                log(f"# K5 attrs {dn} cmid {cmid} cout {cout}: "
-                    f"{at['regs']} registers, {at['local_bytes']} local "
-                    f"bytes, {at['smem_bytes']} shared bytes")
-                require(dtype != torch.bfloat16 or at["local_bytes"] == 0,
-                        f"K5 bf16 cmid {cmid} cout {cout} uses local memory")
+        insts = [(f"K5 attrs {dn} cmid {cmid} cout {cout}",
+                  kch.double_conv_attrs(dtype, cmid, cout))
+                 for cmid in (64, 128) for cout in (64, 128)]
+        insts += [(f"K3/K4/K6 conv3x3_attrs {dn} cout {cout}",
+                   kfb.conv3x3_attrs(dtype, cout)) for cout in (64, 128, 256)]
+        for what, at in insts:
+            log(f"# {what}: {at['regs']} registers, {at['local_bytes']} "
+                f"local bytes, {at['smem_bytes']} shared bytes")
+            require(dtype != torch.bfloat16 or at["local_bytes"] == 0,
+                    f"{what} uses local memory")
 
     # -- phase 3: the main path, three batches through the Renderer --------
     cfg = default_config()
@@ -873,23 +876,31 @@ def main() -> int:
         y, _ = unet_light._double_conv(up_bf[name], us_bf[name], x)
         return (y, tnn.maxpool2d(y)) if pool else y
 
-    t_k3, ops, moved = [0.0, 0.0, 0.0], 0.0, 0
+    # the mid activation's round trip through device memory (written by
+    # the first launch, read by the second), timed at the HBM rate: what
+    # one launch per block (ROADMAP B1) could save at most
+    t_k3, ops, moved, mid_bytes = [0.0, 0.0, 0.0], 0.0, 0, 0
     for name, args, kw in k3_cases(bf):
         x, w1, w2 = args[0], args[1], args[4]
         outs = kfb.fused_block(*args, **kw)
         ops += conv_ops(x, w1.shape[2], w1.shape[3]) + conv_ops(
             x, w2.shape[2], w2.shape[3])
         moved += nbytes(*args, kw["up"], *(outs if kw["pool"] else (outs,)))
+        mb = 2 * x.numel() // x.shape[3] * w1.shape[3] * x.element_size()
+        mid_bytes += mb
         tk = cuda_ms(lambda: kfb.fused_block(*args, **kw), iters=5)
         tp = cuda_ms(lambda: kfb.fused_block_plain(*args, **kw), iters=5)
         tc = cuda_ms(lambda: plain_path_block(name, args[0], kw["up"],
                                               kw["pool"]), iters=5)
         log(f"# time K3 {name} bf16 B=8: kernel {tk:.3f} ms, plain "
             f"(float32 convs) {tp:.3f} ms, plain path (bf16 cuDNN) "
-            f"{tc:.3f} ms")
+            f"{tc:.3f} ms; mid round trip {mb / 1e6:.1f} MB = "
+            f"{1e3 * mb / HBM_BYTES_PER_S:.3f} ms at the HBM rate")
         t_k3 = [t_k3[0] + tk, t_k3[1] + tp, t_k3[2] + tc]
-    log(f"# time K3 bf16 B=8 five blocks: plain path (bf16 cuDNN) "
-        f"{t_k3[2]:.3f} ms")
+    log(f"# time K3 bf16 B=8 five blocks: kernel {t_k3[0]:.3f} ms, plain "
+        f"path (bf16 cuDNN) {t_k3[2]:.3f} ms; mid round trips "
+        f"{mid_bytes / 1e6:.1f} MB = "
+        f"{1e3 * mid_bytes / HBM_BYTES_PER_S:.3f} ms at the HBM rate")
     row("fused_block", t_k3[0], t_k3[1], None, ops, moved, "bf16",
         note="none: no single PyTorch call fuses the upsample, concat, two "
              "convs, BatchNorm, ReLU and pool")
@@ -913,7 +924,10 @@ def main() -> int:
             w.shape[3] * x.element_size()
         t_pair.append(k4)
         log(f"# time conv {name} {tuple(x.shape)}->{w.shape[3]} bf16: K4 "
-            f"{k4:.3f} ms, cuDNN {lib_ms:.3f} ms")
+            f"{k4:.3f} ms, cuDNN {lib_ms:.3f} ms ({k4 / lib_ms:.2f}x), "
+            f"{conv_ops(x, w.shape[2], w.shape[3]) / k4 / 1e9:.1f} TFLOP/s")
+    log(f"# time K4 bf16 ten convs: {t4:.3f} ms against ten cuDNN convs "
+        f"{tl:.3f} ms ({t4 / tl:.3f}x), {ops / t4 / 1e9:.1f} TFLOP/s")
     row("conv3x3_hcw", t4, tp, tl, ops, moved, "bf16")
     row("conv3x3_infer", t6, tp, tl, ops, moved, "bf16")
     t5 = tp = tl = ops = 0.0

@@ -94,7 +94,7 @@ struct DcArgs {
 namespace hb {
 
 constexpr int kWarps = 8, kThreads = 32 * kWarps;
-constexpr int kFrags = 4;                        // m16 fragments per warp
+constexpr int kFrags = s2l::kTileFrags;          // m16 fragments per warp
 constexpr int kPassPix = kWarps * kFrags * 16;   // 512 pixels per pass
 constexpr int kNp = 64;                          // channels per pass
 constexpr int kKc = 16;                          // channels per ring stage
@@ -103,7 +103,7 @@ constexpr int kPassRows = kPassPix / kMidW;      // mid rows per conv1 pass
 constexpr int kPatchH = kPassRows + 2, kPatchW = kMidW + 2;
 constexpr int kPlaneBytes = kPatchH * kPatchW * 16;  // one 8-channel half
 constexpr int kPatchBytes = 2 * kPlaneBytes;
-constexpr int kWRow = kNp * 2;                            // 128-byte rows
+constexpr int kWRow = s2l::kTileWRow;                     // 128-byte rows
 constexpr int kWBytes = 9 * kKc * kWRow;
 constexpr int kStageBytes = kPatchBytes + kWBytes;
 
@@ -126,33 +126,6 @@ __device__ __forceinline__ uint32_t patch_off(int p, int half) {
   return half * kPlaneBytes + p * 16;
 }
 __device__ __forceinline__ uint32_t w_off(int r, int u) { return r * kWRow + ((u ^ (r & 7)) << 4); }
-
-// One tap's 16-channel step: acc[f][n8] += A_f * B, B fragments from the
-// [16][64] weight rows at wtap (swizzled as w_off).
-__device__ __forceinline__ void mma_tap(float (&acc)[kFrags][8][4], const uint32_t (&af)[kFrags][4],
-                                        uint32_t wtap, int lane) {
-  const uint32_t row = wtap + (lane & 15) * kWRow;
-  const int s = (lane >> 4) ^ (lane & 7);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    uint32_t bfr[4];
-    s2l::ldsm_x4_trans(bfr, row + (((2 * j) ^ s) << 4));
-#pragma unroll
-    for (int f = 0; f < kFrags; ++f) {
-      s2l::mma_bf16_16816(acc[f][2 * j], af[f], bfr[0], bfr[1]);
-      s2l::mma_bf16_16816(acc[f][2 * j + 1], af[f], bfr[2], bfr[3]);
-    }
-  }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[kFrags][8][4]) {
-#pragma unroll
-  for (int f = 0; f < kFrags; ++f)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[f][j][e] = 0.f;
-}
 
 template <int kCmid, int kCout>
 __global__ void __launch_bounds__(kThreads, 1) double_conv_kernel_bf16(DcArgs<bf16> a) {
@@ -218,7 +191,7 @@ __global__ void __launch_bounds__(kThreads, 1) double_conv_kernel_bf16(DcArgs<bf
   };
 
   float acc[kFrags][8][4];
-  zero(acc);
+  s2l::zero_tile(acc);
   load(0);
   s2l::cp_async_commit();
   for (int it = 0; it < items; ++it) {
@@ -244,7 +217,7 @@ __global__ void __launch_bounds__(kThreads, 1) double_conv_kernel_bf16(DcArgs<bf
 #pragma unroll
         for (int f = 0; f < kFrags; ++f)
           s2l::ldsm_x4(af[f], a0[f] + ((tap / 3) * kPatchW + tap % 3) * 16);
-        mma_tap(acc, af, ws + tap * kKc * kWRow, lane);
+        s2l::mma_tile(acc, af, ws + tap * kKc * kWRow, lane);
       }
       if (it % c1 == c1 - 1) {
         // BN1 + ReLU, 0 outside the image, rounded to bf16, into the mid tile
@@ -267,7 +240,7 @@ __global__ void __launch_bounds__(kThreads, 1) double_conv_kernel_bf16(DcArgs<bf
             }
           }
         }
-        zero(acc);
+        s2l::zero_tile(acc);
       }
     } else {
       // conv2 pass (mp, np): output pixels o = mp*512 + g*16 + lane row,
@@ -287,7 +260,7 @@ __global__ void __launch_bounds__(kThreads, 1) double_conv_kernel_bf16(DcArgs<bf
 #pragma unroll
         for (int f = 0; f < kFrags; ++f)
           s2l::ldsm_x4(af[f], a0[f] + ((tap / 3) * kMidW + tap % 3) * L::kLdm * 2);
-        mma_tap(acc, af, ws + tap * kKc * kWRow, lane);
+        s2l::mma_tile(acc, af, ws + tap * kKc * kWRow, lane);
       }
       if (chunk == kC2 - 1) {
         // BN2 + ReLU -> out
@@ -309,7 +282,7 @@ __global__ void __launch_bounds__(kThreads, 1) double_conv_kernel_bf16(DcArgs<bf
             }
           }
         }
-        zero(acc);
+        s2l::zero_tile(acc);
       }
     }
   }

@@ -15,28 +15,74 @@
 //
 // The upsample and the concat happen while the input tile is loaded, so
 // neither tensor exists in device memory; BN and ReLU run in the epilogue,
-// and the 2x2 max pool of the post-ReLU tile is a second output.  The conv
-// is an implicit GEMM on the tensor cores (mma.cuh): a block computes an
-// 8x16-pixel tile for all cout channels (one warp per tile row, M = 16
+// and the 2x2 max pool of the post-ReLU tile is a second output.  The mid
+// activation between a block's two convs goes through device memory
+// (csrc/double_conv.cu keeps it on chip for K5, at the price of a
+// recomputed halo).
+//
+// bfloat16 body (the serving type), for the H100, on K5's mainloop
+// (ptx.cuh):
+// - Tile: a block computes 16 x 32 output pixels x 64 output channels.
+//   Eight warps each own two tile rows, four m16 fragments x eight n8
+//   fragments (128 float32 accumulators a thread, s2l::mma_tile).  Cout
+//   128 and 256 are two and four such tiles next to each other in the
+//   tile order, not passes inside a block: tiles of one input patch run
+//   at the same time on neighbouring SMs and read it from L2, and down2
+//   (125 x 125) has 512 tiles to spread over 132 SMs instead of 256.
+// - Persistent blocks: one per SM (the accumulators leave registers for
+//   no second one), walking tiles blockIdx.x, + gridDim.x, ...  The load
+//   ring runs on from one tile into the next, so a tile's epilogue
+//   overlaps the next tile's first loads.
+// - Loads: a four-stage ring of 16-channel chunks, each the 18 x 34 input
+//   patch (two planes of 16-byte rows, channels 0-7 and 8-15, so a tap's
+//   (dy, dx) shift is a constant offset) and 9 taps x 16 x 64 weights
+//   (128-byte rows, 16-byte units XOR-ed by k % 8), 38 KB; filled three
+//   chunks ahead by 16-byte cp.async.cg, one barrier a chunk.  Pixels
+//   outside the image and channels past cin are copied with src-size 0,
+//   which zero-fills: the conv's zero padding costs nothing.  Chunks of
+//   the upsampled source cannot be copied: the threads compute them from
+//   lo with the align-corners taps (ac_pos / upsampled, as the float32
+//   body), round them to bf16 and store them into the stage being filled,
+//   synchronously.  Concat widths that are no multiple of 8 (inc's cin 3)
+//   fill element by element.
+// - MMAs: per tap and chunk a warp loads four A fragments (ldmatrix.x4,
+//   one pixel row address per lane) and four pairs of B fragments
+//   (ldmatrix.x4.trans), then issues 32 mma.sync m16n8k16 bf16 with
+//   float32 sums.
+// - Epilogue in registers: BN scale/bias and the ReLU; the 2x2 pool is a
+//   max over the thread's two tile rows and one shuffle; out goes through
+//   2 KB of shared memory a warp (16 pixels x 64 channels, swizzled) and
+//   leaves as 128-byte pixel rows of 16-byte stores.  Pixels outside the
+//   image are never stored.
+// - 256 threads, 168 KB of shared memory, no local memory (conv3x3_attrs
+//   reports it; the smoke run requires 0 bytes).
+// What bounds it (H100 80GB HBM3, 700 W, the U-Net's ten convs at 500 x
+// 500, batch 8): mma.sync issue at eight warps per SM, 264-313 TFLOP/s a
+// conv except inc's Cin 3.  The upsampled chunks cost up1 and up2 about
+// 0.3 ms each, though their loads are synchronous: L1 serves most taps.
+// A window of lo per stage, copied by cp.async and blended into the patch
+// one chunk ahead, measured 3% slower over the five blocks (31 KB more
+// shared memory, so a smaller L1) and was dropped.
+// Next step: wgmma (B from shared memory by descriptor), which is where
+// cuDNN still wins, at Cout 128 (1.13-1.54x this kernel's time).
+//
+// float32 body: the first design, 3xTF32 WMMA (mma.cuh).  A block computes
+// an 8x16-pixel tile for all cout channels (one warp per tile row, M = 16
 // pixels), looping over input channels in chunks; per chunk the haloed
 // input tile and the 9 taps' weights sit in shared memory, loaded 16 bytes
-// a thread.  Bound on the H100: the un-pipelined chunk loads (the whole
-// conv weight streams from L2 once per tile) and tensor-core issue at
-// small tiles; 16x16 tiles measured slower.  The mid activation between a
-// block's two convs goes through device memory: its traffic is a few
-// percent of the block's time at May geometry, while keeping it on chip
-// would recompute the mid tile's 1-pixel halo (+41% conv1 work at 8x16;
-// csrc/double_conv.cu is that design, for K5).
+// a thread, not pipelined.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma.cuh"
+#include "ptx.cuh"
 
 namespace {
 
 using s2l::Mma;
+using bf16 = __nv_bfloat16;
 
-constexpr int kTileH = 8, kTileW = 16;  // output tile; kTileW = one M fragment
+constexpr int kTileH = 8, kTileW = 16;  // float32 output tile; kTileW = one M fragment
 
 template <typename T>
 struct ConvArgs {
@@ -47,7 +93,7 @@ struct ConvArgs {
   const float* bias;
   T* out;            // [B, h, wd, cout]
   T* pool;           // [B, h/2, wd/2, cout] or null
-  int c0, c1, hl, wl, h, wd;
+  int c0, c1, hl, wl, h, wd, b;
   int relu;          // apply the ReLU in the epilogue
 };
 
@@ -216,16 +262,254 @@ __global__ void __launch_bounds__(32 * kTileH) conv3x3_kernel(ConvArgs<T> a) {
   }
 }
 
+// ---------------------------------------------------------------- bf16 --
+
+namespace hb {
+
+constexpr int kWarps = 8, kThreads = 32 * kWarps;
+constexpr int kFrags = s2l::kTileFrags;           // m16 fragments per warp
+constexpr int kTh = 16, kTw = 32;                 // output tile, 512 pixels
+constexpr int kNp = 64;                           // output channels per tile
+constexpr int kKc = 16;                           // input channels per stage
+constexpr int kStages = 4;
+constexpr int kPatchH = kTh + 2, kPatchW = kTw + 2;
+constexpr int kPlaneBytes = kPatchH * kPatchW * 16;  // one 8-channel half
+constexpr int kPatchBytes = 2 * kPlaneBytes;
+constexpr int kWRow = s2l::kTileWRow;
+constexpr int kWBytes = 9 * kKc * kWRow;
+constexpr int kStageBytes = kPatchBytes + kWBytes;
+constexpr int kScratchBytes = 16 * kWRow;          // a warp's 16 pixels x 64 channels
+constexpr int kBytes = kStages * kStageBytes + kWarps * kScratchBytes;
+static_assert(kWarps * kFrags * 16 == kTh * kTw, "a warp owns two tile rows");
+static_assert(kBytes <= 232448, "shared memory");
+
+// byte offset of 8-channel half `half` of patch pixel p / of 16-byte unit
+// u of weight row r (and of scratch pixel row r)
+__device__ __forceinline__ uint32_t patch_off(int p, int half) {
+  return half * kPlaneBytes + p * 16;
+}
+__device__ __forceinline__ uint32_t w_off(int r, int u) { return r * kWRow + ((u ^ (r & 7)) << 4); }
+
+struct TileAt {
+  int b, y0, x0, n0;  // image, first row / column, first output channel
+};
+
+template <int kCout>
+__global__ void __launch_bounds__(kThreads, 1) conv3x3_kernel_bf16(ConvArgs<bf16> a) {
+  constexpr int kN = kCout / kNp;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t ring_s = s2l::smem_addr(smem);
+  unsigned char* const scratch = smem + kStages * kStageBytes + (threadIdx.x / 32) * kScratchBytes;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int cin = a.c0 + a.c1, nc = (cin + kKc - 1) / kKc;
+  const bool vec = a.c0 % 8 == 0 && a.c1 % 8 == 0;  // 16-byte channel runs
+  const int tiles_x = (a.wd + kTw - 1) / kTw, tiles_y = (a.h + kTh - 1) / kTh;
+  const int tiles = tiles_x * tiles_y * kN * a.b;
+  // tiles blockIdx.x, + gridDim.x, ... (the launch keeps gridDim.x <= tiles)
+  const int items = ((tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1) * nc;  // chunk fastest
+
+  // tile of item it; output channels fastest, then columns, rows, images
+  auto tile_of = [&](int it) {
+    int t = blockIdx.x + (it / nc) * gridDim.x;
+    TileAt tl;
+    tl.n0 = (t % kN) * kNp;
+    t /= kN;
+    tl.x0 = (t % tiles_x) * kTw;
+    t /= tiles_x;
+    tl.y0 = (t % tiles_y) * kTh;
+    tl.b = t / tiles_y;
+    return tl;
+  };
+
+  // fill ring stage it % kStages with item it
+  auto load = [&](int it) {
+    const TileAt tl = tile_of(it);
+    const int ci0 = (it % nc) * kKc;
+    const uint32_t st = ring_s + (it % kStages) * kStageBytes, ws = st + kPatchBytes;
+    unsigned char* const stp = smem + (it % kStages) * kStageBytes;
+    // input patch, rows y0-1.., columns x0-1..
+    for (int i = threadIdx.x; i < kPatchH * kPatchW * 2; i += kThreads) {
+      const int p = i / 2, half = i % 2, ch = ci0 + 8 * half;
+      const int y = tl.y0 - 1 + p / kPatchW, x = tl.x0 - 1 + p % kPatchW;
+      const bool in = y >= 0 && y < a.h && x >= 0 && x < a.wd;
+      const size_t pix = ((size_t)tl.b * a.h + y) * a.wd + x;
+      if (vec && (!in || ch < a.c0 || ch >= cin)) {
+        const bool ok = in && ch < a.c0;
+        s2l::cp_async16(st + patch_off(p, half), ok ? a.x + pix * a.c0 + ch : a.x, ok);
+      } else if (vec) {
+        upsampled<bf16, 8>(a, tl.b, y, x, ch - a.c0, 8,
+                           reinterpret_cast<bf16*>(stp + patch_off(p, half)));
+      } else {
+        bf16* dst = reinterpret_cast<bf16*>(stp + patch_off(p, half));
+#pragma unroll 1
+        for (int e = 0; e < 8; ++e) {
+          const int c = ch + e;
+          if (!in || c >= cin)
+            dst[e] = __float2bfloat16(0.f);
+          else if (c < a.c0)
+            dst[e] = a.x[pix * a.c0 + c];
+          else
+            upsampled<bf16, 8>(a, tl.b, y, x, c - a.c0, 1, dst + e);
+        }
+      }
+    }
+    // the chunk's weights, all 9 taps, output channels n0..n0+63
+    for (int i = threadIdx.x; i < 9 * kKc * 8; i += kThreads) {
+      const int u = i % 8, r = i / 8, ch = ci0 + r % kKc, tap = r / kKc;
+      const bool ok = ch < cin;
+      s2l::cp_async16(ws + w_off(r, u),
+                      ok ? a.w + ((size_t)tap * cin + ch) * kCout + tl.n0 + 8 * u : a.w, ok);
+    }
+  };
+
+  float acc[kFrags][8][4];
+  s2l::zero_tile(acc);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < items) load(s);
+    s2l::cp_async_commit();
+  }
+  const int kh = lane / 16;  // the k half this lane addresses
+  for (int it = 0; it < items; ++it) {
+    s2l::cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage it landed; every warp is done with stage it - 1
+    if (it + kStages - 1 < items) load(it + kStages - 1);
+    s2l::cp_async_commit();
+    const uint32_t st = ring_s + (it % kStages) * kStageBytes, ws = st + kPatchBytes;
+    // fragment g = warp * 4 + f: tile row g / 2, columns (g % 2) * 16..
+    uint32_t a0[kFrags];
+#pragma unroll
+    for (int f = 0; f < kFrags; ++f) {
+      const int g = warp * kFrags + f;
+      a0[f] = st + patch_off((g / 2) * kPatchW + (g % 2) * 16 + lane % 16, kh);
+    }
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      uint32_t af[kFrags][4];
+#pragma unroll
+      for (int f = 0; f < kFrags; ++f)
+        s2l::ldsm_x4(af[f], a0[f] + ((tap / 3) * kPatchW + tap % 3) * 16);
+      s2l::mma_tile(acc, af, ws + tap * kKc * kWRow, lane);
+    }
+    if (it % nc != nc - 1) continue;
+
+    // epilogue: BN scale/bias [+ ReLU] in registers
+    const TileAt tl = tile_of(it);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = tl.n0 + 8 * j + 2 * (lane % 4);
+      const float sa = a.scale[n], sb = a.scale[n + 1], ba = a.bias[n], bb = a.bias[n + 1];
+#pragma unroll
+      for (int f = 0; f < kFrags; ++f)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float v0 = acc[f][j][2 * h] * sa + ba, v1 = acc[f][j][2 * h + 1] * sb + bb;
+          if (a.relu) {
+            v0 = fmaxf(v0, 0.f);
+            v1 = fmaxf(v1, 0.f);
+          }
+          acc[f][j][2 * h] = v0;
+          acc[f][j][2 * h + 1] = v1;
+        }
+    }
+    // 2x2 max pool: fragments f and f + 2 are tile rows 2 * warp and
+    // 2 * warp + 1; lane ^ 4 holds the neighbouring column
+    if (a.pool != nullptr) {
+      const int hp = a.h / 2, wp = a.wd / 2, y2 = tl.y0 / 2 + warp;
+#pragma unroll
+      for (int f = 0; f < 2; ++f)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float m0 = fmaxf(acc[f][j][2 * h], acc[f + 2][j][2 * h]);
+            float m1 = fmaxf(acc[f][j][2 * h + 1], acc[f + 2][j][2 * h + 1]);
+            m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 4));
+            m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 4));
+            const int x2 = tl.x0 / 2 + f * 8 + lane / 8 + 4 * h;
+            if ((lane & 4) == 0 && y2 < hp && x2 < wp)
+              *reinterpret_cast<uint32_t*>(
+                  a.pool + (((size_t)tl.b * hp + y2) * wp + x2) * kCout + tl.n0 + 8 * j +
+                  2 * (lane % 4)) = s2l::pack_bf16x2(m0, m1);
+          }
+    }
+    // out: each fragment through the warp's scratch, 16 pixels x 64
+    // channels, then 16-byte stores of whole 128-byte pixel rows
+#pragma unroll
+    for (int f = 0; f < kFrags; ++f) {
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int p = lane / 4 + 8 * h;
+          *reinterpret_cast<uint32_t*>(scratch + w_off(p, j) + 4 * (lane % 4)) =
+              s2l::pack_bf16x2(acc[f][j][2 * h], acc[f][j][2 * h + 1]);
+        }
+      __syncwarp();
+      const int g = warp * kFrags + f, y = tl.y0 + g / 2;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int p = lane / 8 + 4 * k, u = lane % 8, x = tl.x0 + (g % 2) * 16 + p;
+        if (y < a.h && x < a.wd)
+          *reinterpret_cast<uint4*>(a.out + (((size_t)tl.b * a.h + y) * a.wd + x) * kCout +
+                                    tl.n0 + 8 * u) =
+              *reinterpret_cast<const uint4*>(scratch + w_off(p, u));
+      }
+    }
+    s2l::zero_tile(acc);
+  }
+}
+
+}  // namespace hb
+
+// One (dtype, cout) instance: its kernel, shared memory and launch.
 template <typename T, int kCout>
-int launch_cout(const ConvArgs<T>& a, int b, cudaStream_t stream) {
-  using L = ConvLayout<T, kCout>;
-  cudaError_t err = cudaFuncSetAttribute(conv3x3_kernel<T, kCout>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)L::kBytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.wd + kTileW - 1) / kTileW, (a.h + kTileH - 1) / kTileH, b);
-  conv3x3_kernel<T, kCout><<<grid, L::kThreads, L::kBytes, stream>>>(a);
-  return (int)cudaGetLastError();
+struct Inst {
+  static constexpr bool kBf16 = sizeof(T) == 2;
+  static const void* fn() {
+    if constexpr (kBf16)
+      return reinterpret_cast<const void*>(hb::conv3x3_kernel_bf16<kCout>);
+    else
+      return reinterpret_cast<const void*>(conv3x3_kernel<T, kCout>);
+  }
+  static size_t smem() {
+    if constexpr (kBf16)
+      return hb::kBytes;
+    else
+      return ConvLayout<T, kCout>::kBytes;
+  }
+  static int launch(const ConvArgs<T>& a, cudaStream_t stream) {
+    cudaError_t err =
+        cudaFuncSetAttribute(fn(), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem());
+    if (err != cudaSuccess) return (int)err;
+    if constexpr (kBf16) {
+      int dev = 0, sms = 0;
+      if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+          (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+        return (int)err;
+      const long long tiles = (long long)((a.wd + hb::kTw - 1) / hb::kTw) *
+                              ((a.h + hb::kTh - 1) / hb::kTh) * (kCout / hb::kNp) * a.b;
+      if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+      const int grid = (int)(tiles < sms ? tiles : sms);
+      hb::conv3x3_kernel_bf16<kCout><<<grid, hb::kThreads, smem(), stream>>>(a);
+    } else {
+      dim3 grid((a.wd + kTileW - 1) / kTileW, (a.h + kTileH - 1) / kTileH, a.b);
+      conv3x3_kernel<T, kCout><<<grid, ConvLayout<T, kCout>::kThreads, smem(), stream>>>(a);
+    }
+    return (int)cudaGetLastError();
+  }
+};
+
+// f(Inst<T, cout>{}) for the instantiated widths, 64, 128 and 256
+template <typename T, class F>
+int by_cout(int cout, F&& f) {
+  switch (cout) {
+    case 64: return f(Inst<T, 64>{});
+    case 128: return f(Inst<T, 128>{});
+    case 256: return f(Inst<T, 256>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
@@ -253,14 +537,10 @@ int launch(const void* x, int c0, const void* lo, int c1, int hl, int wl, const 
   a.wl = wl;
   a.h = h;
   a.wd = wd;
+  a.b = b;
   a.relu = relu;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (cout) {
-    case 64: return launch_cout<T, 64>(a, b, s);
-    case 128: return launch_cout<T, 128>(a, b, s);
-    case 256: return launch_cout<T, 256>(a, b, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return by_cout<T>(cout, [&](auto inst) { return decltype(inst)::launch(a, s); });
 }
 
 }  // namespace
@@ -269,8 +549,8 @@ extern "C" int conv3x3_bn_relu_bf16(const void* x, int c0, const void* lo, int c
                                     int wl, const void* w, const void* scale, const void* bias,
                                     void* out, void* pool, int b, int h, int wd, int cout,
                                     void* stream) {
-  return launch<__nv_bfloat16>(x, c0, lo, c1, hl, wl, w, scale, bias, out, pool, b, h, wd,
-                               cout, 1, stream);
+  return launch<bf16>(x, c0, lo, c1, hl, wl, w, scale, bias, out, pool, b, h, wd, cout, 1,
+                      stream);
 }
 
 extern "C" int conv3x3_bn_relu_f32(const void* x, int c0, const void* lo, int c1, int hl,
@@ -285,8 +565,8 @@ extern "C" int conv3x3_bn_relu_f32(const void* x, int c0, const void* lo, int c1
 extern "C" int conv3x3_affine_bf16(const void* x, const void* w, const void* scale,
                                    const void* bias, void* out, int b, int h, int wd, int cin,
                                    int cout, int relu, void* stream) {
-  return launch<__nv_bfloat16>(x, cin, nullptr, 0, 0, 0, w, scale, bias, out, nullptr, b, h,
-                               wd, cout, relu, stream);
+  return launch<bf16>(x, cin, nullptr, 0, 0, 0, w, scale, bias, out, nullptr, b, h, wd, cout,
+                      relu, stream);
 }
 
 extern "C" int conv3x3_affine_f32(const void* x, const void* w, const void* scale,
@@ -294,4 +574,21 @@ extern "C" int conv3x3_affine_f32(const void* x, const void* w, const void* scal
                                   int cout, int relu, void* stream) {
   return launch<float>(x, cin, nullptr, 0, 0, 0, w, scale, bias, out, nullptr, b, h, wd, cout,
                        relu, stream);
+}
+
+// Registers per thread, local-memory bytes per thread and shared-memory
+// bytes per block (static + the launch's dynamic bytes) of one instance.
+extern "C" int conv3x3_attrs(int bf16_type, int cout, int* regs, int* local_bytes,
+                             int* smem_bytes) {
+  auto get = [&](auto inst) {
+    using I = decltype(inst);
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, I::fn());
+    if (err != cudaSuccess) return (int)err;
+    *regs = attr.numRegs;
+    *local_bytes = (int)attr.localSizeBytes;
+    *smem_bytes = (int)(attr.sharedSizeBytes + I::smem());
+    return 0;
+  };
+  return bf16_type ? by_cout<bf16>(cout, get) : by_cout<float>(cout, get);
 }

@@ -32,6 +32,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// Wait until at most kPending of this thread's committed groups are in
+// flight (a ring of kPending + 2 stages waits for the oldest).
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
 // Four 8x8 b16 matrices; lane l gives the row address of matrix l / 8,
 // row l % 8, and gets register i from matrix i.
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -62,6 +69,41 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The warp tile of the conv kernels (double_conv.cu, fused_block.cu): four
+// m16 fragments (64 pixels) x eight n8 fragments (64 channels), 128
+// float32 accumulators a thread.
+constexpr int kTileFrags = 4;
+constexpr int kTileWRow = 128;  // bytes of a [k][64] bf16 weight row
+
+__device__ __forceinline__ void zero_tile(float (&acc)[kTileFrags][8][4]) {
+#pragma unroll
+  for (int f = 0; f < kTileFrags; ++f)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[f][j][e] = 0.f;
+}
+
+// One 16-channel step of the warp tile: acc[f][n8] += A_f * B, B from the
+// [16][64] weight rows at shared address w, 16-byte unit u of row k stored
+// at unit u ^ (k % 8) (ldmatrix.trans of eight k rows is conflict-free).
+__device__ __forceinline__ void mma_tile(float (&acc)[kTileFrags][8][4],
+                                         const uint32_t (&af)[kTileFrags][4], uint32_t w,
+                                         int lane) {
+  const uint32_t row = w + (lane & 15) * kTileWRow;
+  const int s = (lane >> 4) ^ (lane & 7);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t bfr[4];
+    ldsm_x4_trans(bfr, row + (((2 * j) ^ s) << 4));
+#pragma unroll
+    for (int f = 0; f < kTileFrags; ++f) {
+      mma_bf16_16816(acc[f][2 * j], af[f], bfr[0], bfr[1]);
+      mma_bf16_16816(acc[f][2 * j + 1], af[f], bfr[2], bfr[3]);
+    }
+  }
 }
 
 }  // namespace s2l

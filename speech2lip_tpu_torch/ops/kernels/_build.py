@@ -47,6 +47,9 @@ SIGNATURES = {
     # (x, w, scale, bias, out, b, h, wd, cin, cout, relu, stream)
     "conv3x3_affine_bf16": [_P] * 5 + [_I] * 6 + [_P],
     "conv3x3_affine_f32": [_P] * 5 + [_I] * 6 + [_P],
+    # (bf16, cout, regs*, local_bytes*, smem_bytes*): one conv3x3 (K3/K4/K6)
+    # instance's cudaFuncGetAttributes
+    "conv3x3_attrs": [_I, _I, _IP, _IP, _IP],
     # (x, w1, scale1, bias1, w2, scale2, bias2, out, b, h, wd, cin, cmid,
     #  cout, stream)
     "double_conv_bf16": [_P] * 8 + [_I] * 6 + [_P],
@@ -153,6 +156,18 @@ def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
+
+
+def func_attrs(name: str, *args) -> dict:
+    """Registers per thread, local-memory bytes per thread and shared-memory
+    bytes per block of one kernel instance, from the C entry ``name`` (a
+    ``cudaFuncGetAttributes`` behind ``*_attrs(args..., int*, int*, int*)``;
+    builds the kernels, needs the CUDA runtime)."""
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    check(getattr(library(), name)(*args, *(ctypes.byref(v) for v in vals)),
+          name)
+    return dict(zip(("regs", "local_bytes", "smem_bytes"),
+                    (v.value for v in vals)))
 
 
 def stream_ptr(t) -> int:

@@ -9,8 +9,9 @@ arguments are NHWC with no halo.
 
 - ``conv3x3_hcw`` (K4): relu?(conv3x3(x, w, pad 1) * scale + bias).  On the
   card it launches the K3 conv kernel with no upsample source and no pool
-  (``fused_block.conv3x3_affine``), Cout in {64, 128, 256} as the TPU
-  kernel; ``unet_light.apply_infer_hcw`` runs ten per U-Net.
+  (``fused_block.conv3x3_affine``; in bf16 the cp.async-ring / ldmatrix /
+  mma.sync design), Cout in {64, 128, 256} as the TPU kernel;
+  ``unet_light.apply_infer_hcw`` runs ten per U-Net.
 - ``double_conv_hcw`` (K5): DoubleConv in one launch of
   ``csrc/double_conv.cu``, the conv1 output kept in shared memory (never
   in device memory) and recomputed on a one-pixel halo per tile, rounded
@@ -27,8 +28,6 @@ outputs rounded to x's dtype: ``fused_block.conv3x3_affine_plain`` for K4
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -98,9 +97,5 @@ def double_conv_attrs(dtype, cmid: int, cout: int) -> dict:
     runtime)."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"double_conv_attrs: dtype {dtype}")
-    vals = [ctypes.c_int(0) for _ in range(3)]
-    _build.check(_build.library().double_conv_attrs(
-        int(dtype == torch.bfloat16), cmid, cout,
-        *(ctypes.byref(v) for v in vals)), "double_conv_attrs")
-    return dict(zip(("regs", "local_bytes", "smem_bytes"),
-                    (v.value for v in vals)))
+    return _build.func_attrs("double_conv_attrs",
+                             int(dtype == torch.bfloat16), cmid, cout)

@@ -6,10 +6,17 @@ Replaces ``speech2lip_tpu/ops/pallas/conv_hcw.py:fused_block_hcw``:
 is two launches of one conv kernel: the first loads the concatenated,
 upsampled input tile on the fly (neither tensor is written to device
 memory), the second reads the mid activation back from device memory and
-emits the pooled output from its epilogue.  On the H100 each launch is an
-implicit GEMM on the tensor cores over 8x16-pixel tiles, bound by its
-un-pipelined input and weight loads (16 bytes a thread) and tensor-core
-issue at that tile size.
+emits the pooled output from its epilogue.
+
+On the H100 the kernel is an implicit GEMM on the tensor cores.  In bf16
+(the serving type) a block computes 16x32-pixel x 64-channel output tiles,
+one block per SM walking the tiles; a four-stage ring of 16-channel chunks
+(input patch and weights) is filled by ``cp.async`` three chunks ahead,
+the upsampled chunks computed by the threads as they fill; ``ldmatrix`` +
+``mma.sync`` m16n8k16 warp tiles; BN, ReLU and the pool in registers, the
+output stored as 16-byte rows.  In float32 it is the first design, 3xTF32
+WMMA over 8x16-pixel tiles with un-pipelined loads.  ``conv3x3_attrs``
+reports an instance's registers, local memory and shared memory.
 
 ``conv3x3_affine`` launches the same kernel as a plain conv3x3 + per-channel
 scale/bias [+ ReLU] (no upsample source, no pool): the kernel behind K4
@@ -100,6 +107,17 @@ def conv3x3_affine(x, w, scale, bias, relu: bool = True):
                     bias.data_ptr(), out.data_ptr(), b, h, wd, cin, cout,
                     int(relu), _build.stream_ptr(x)), "conv3x3_affine")
     return out
+
+
+def conv3x3_attrs(dtype, cout: int) -> dict:
+    """Registers per thread, local-memory bytes per thread and shared-memory
+    bytes per block of the conv kernel instance for (dtype, cout), from
+    ``cudaFuncGetAttributes`` (builds the kernels; needs the CUDA
+    runtime)."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"conv3x3_attrs: dtype {dtype}")
+    return _build.func_attrs("conv3x3_attrs", int(dtype == torch.bfloat16),
+                             cout)
 
 
 def _launch(fn, x, lo, w, scale, bias, out, pool_out):

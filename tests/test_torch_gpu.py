@@ -88,12 +88,10 @@ def test_window_sample_kernel(cuda, dtype):
     assert _rel_err(got, ref) < (1e-5 if dtype == torch.float32 else 1e-2)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("block,size,pool", [
-    ("inc", (36, 52), True), ("down1", (18, 26), True),
-    ("down2", (9, 13), False), ("up1", (18, 26), False),
-    ("up2", (36, 52), False)])
-def test_fused_block_kernel(cuda, dtype, block, size, pool):
+def _check_fused_block(cuda, dtype, block, size, pool, batch=2, lo_size=None):
+    """K3 with the U-Net block's weights on a size x input (an up block's
+    low-resolution source at lo_size, by default ((h + 1) // 2, (w + 1) //
+    2)) against its plain version, pooled output too."""
     _, up, us = weights.random_params(0, device=cuda, dtype=dtype)
     p, s = up[block], us[block]
     s1, b1 = fold_bn(p["bn1"], s["bn1"])
@@ -104,11 +102,12 @@ def test_fused_block_kernel(cuda, dtype, block, size, pool):
     g = torch.Generator(device=cuda).manual_seed(2)
     h, w = size
     if block.startswith("up"):
-        x = torch.rand(2, h, w, cin // 2, device=cuda, generator=g).to(dtype)
-        lo = torch.rand(2, (h + 1) // 2, (w + 1) // 2, cin // 2, device=cuda,
-                        generator=g).to(dtype)
+        x = torch.rand(batch, h, w, cin // 2, device=cuda, generator=g).to(
+            dtype)
+        lo = torch.rand(batch, *(lo_size or ((h + 1) // 2, (w + 1) // 2)),
+                        cin // 2, device=cuda, generator=g).to(dtype)
     else:
-        x = torch.rand(2, h, w, cin, device=cuda, generator=g).to(dtype)
+        x = torch.rand(batch, h, w, cin, device=cuda, generator=g).to(dtype)
         lo = None
     before = kfb.launches
     got = kfb.fused_block(x, *args, up=lo, pool=pool)
@@ -117,6 +116,43 @@ def test_fused_block_kernel(cuda, dtype, block, size, pool):
     ref = kfb.fused_block_plain(x, *args, up=lo, pool=pool)
     for g_, r_ in zip(got if pool else (got,), ref if pool else (ref,)):
         assert _rel_err(g_, r_) < BOUND[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("block,size,pool", [
+    ("inc", (36, 52), True), ("down1", (18, 26), True),
+    ("down2", (9, 13), False), ("up1", (18, 26), False),
+    ("up2", (36, 52), False),
+    # the static-scene crop's three levels (non-square, no tile multiple):
+    # 308x344, 154x172 with a 77x86 source, 77x86 pooled to 38x43
+    ("inc", (308, 344), True), ("down1", (154, 172), True),
+    ("down2", (77, 86), True), ("up1", (154, 172), False),
+    ("up2", (308, 344), False)])
+def test_fused_block_kernel(cuda, dtype, block, size, pool):
+    _check_fused_block(cuda, dtype, block, size, pool)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("size,lo_size", [((40, 70), (16, 60)),
+                                          ((21, 35), (21, 35)),
+                                          ((2, 2), (3, 5))])
+def test_fused_block_kernel_any_upsample_ratio(cuda, dtype, size, lo_size):
+    """K3 with a source that is not half the size: align-corners ratios
+    (source - 1) / (size - 1) of 0.38 to 4 per axis (the U-Net's are
+    about 0.5), a source larger than x included."""
+    _check_fused_block(cuda, dtype, "up1", size, True, lo_size=lo_size)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("h", [15, 16, 17])
+@pytest.mark.parametrize("w", [31, 32, 33])
+@pytest.mark.parametrize("pool", [True, False])
+def test_fused_block_kernel_tile_edges(cuda, dtype, h, w, pool):
+    """K3 one pixel under, on and over the bf16 body's 16x32 tile on each
+    axis: pooled as down1 (two 64-channel output tiles), unpooled as up2
+    (a computed upsample source); batch 3 spreads the tiles over blocks."""
+    _check_fused_block(cuda, dtype, "down1" if pool else "up2", (h, w),
+                       pool, batch=3)
 
 
 # (cin, cout) of the U-Net's ten convs, inc to up2
@@ -138,11 +174,11 @@ def _conv_args(cuda, dtype, cin, cout, seed):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("cin,cout,relu", [c + (True,) for c in UNET_CONVS]
                          + [(64, 64, False), (16, 256, True),
-                            (256, 256, False)])
+                            (3, 256, True), (256, 256, False)])
 def test_conv3x3_kernels(cuda, dtype, cin, cout, relu):
     """K4 (conv3x3_hcw) and K6 (conv3x3_infer), one kernel behind two
     wrappers, at the U-Net's conv shapes on a 37x45 input (no tile
-    multiple), ReLU off and Cout 256 too."""
+    multiple), ReLU off, Cin 3 and Cout 256 too."""
     w, scale, bias = _conv_args(cuda, dtype, cin, cout, cin + cout)
     x = torch.rand(2, 37, 45, cin, device=cuda,
                    generator=torch.Generator(device=cuda).manual_seed(5)
@@ -214,14 +250,20 @@ def test_double_conv_kernel_tile_edges(cuda, dtype, cin, cmid, cout, edge,
     assert _rel_err(got, kch.double_conv_hcw_plain(*args)) < BOUND[dtype]
 
 
-def test_double_conv_bf16_has_no_local_memory(cuda):
-    """Every bf16 K5 instance keeps its accumulators in registers: no
-    spills, no local memory."""
-    for cmid in (64, 128):
-        for cout in (64, 128):
-            attrs = kch.double_conv_attrs(torch.bfloat16, cmid, cout)
-            assert attrs["local_bytes"] == 0, (cmid, cout, attrs)
-            assert 0 < attrs["regs"] <= 255 and attrs["smem_bytes"] > 0
+@pytest.mark.parametrize("kernel", ["double_conv", "conv3x3"])
+def test_bf16_kernels_have_no_local_memory(cuda, kernel):
+    """Every bf16 instance of K5 (Cmid, Cout in {64, 128}) and of the conv
+    kernel behind K3/K4/K6 (Cout 64, 128, 256) keeps its accumulators in
+    registers: no spills, no local memory."""
+    if kernel == "double_conv":
+        insts = [kch.double_conv_attrs(torch.bfloat16, cmid, cout)
+                 for cmid in (64, 128) for cout in (64, 128)]
+    else:
+        insts = [kfb.conv3x3_attrs(torch.bfloat16, cout)
+                 for cout in (64, 128, 256)]
+    for attrs in insts:
+        assert attrs["local_bytes"] == 0, attrs
+        assert 0 < attrs["regs"] <= 255 and attrs["smem_bytes"] > 0
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

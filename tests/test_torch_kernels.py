@@ -183,6 +183,32 @@ def test_fused_block_plain_matches_jax_stages():
     assert kfb.launches == before == 0
 
 
+@pytest.mark.parametrize("size,lo_size", [((13, 19), (6, 9)),
+                                           ((9, 14), (5, 7))])
+def test_fused_block_plain_matches_jax_stages_upsampled_pooled(size, lo_size):
+    """The plain block, the oracle the kernel is held to on the card, at an
+    odd, non-square size with an upsample source and a pool (floor(H/2) x
+    floor(W/2)), against the JAX stages: align-corners upsample, concat
+    after x, DoubleConv, 2x2 max pool."""
+    jp, js = unet_params(64)
+    _, up, us = weights.from_jax(_tf_params(), jp, js)
+    rng = np.random.default_rng(4)
+    x = rng.uniform(0, 1, (2, *size, 64)).astype(np.float32)
+    lo = rng.uniform(0, 1, (2, *lo_size, 64)).astype(np.float32)
+    jin = jnp.concatenate([jnp.asarray(x), jnn.upsample_bilinear(
+        jnp.asarray(lo), *size)], axis=-1)
+    jout = _jblock(jp["up2"], js["up2"], jin)
+    before = kfb.launches
+    got, pooled = kfb.fused_block(torch.from_numpy(x),
+                                  *_fused_args(up, us, "up2"),
+                                  up=torch.from_numpy(lo), pool=True)
+    assert kfb.launches == before == 0
+    assert pooled.shape == (2, size[0] // 2, size[1] // 2, 64)
+    # float32 3x3 convs; BN folded in a different order than JAX applies it
+    assert _err(got, jout) < 1e-4
+    assert _err(pooled, jnn.maxpool2d(jout)) < 1e-4
+
+
 @pytest.mark.parametrize("size", [(32, 32), (20, 28)])
 def test_unet_matches_jax_apply(size):
     jp, js = unet_params(16)
