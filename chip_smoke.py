@@ -20,6 +20,9 @@ made from a seed:
   (K2 forward, K7 hat_sample_dsrc / hat_sample_dgrid backward), one step
   against the plain path, a float32 step on a small input, and one
   sync-stage step (SyncNet loss, frozen U-Net) at batch 2;
+- the dot probe's tool (speech2lip_tpu_torch.tools.bench_int8_dot) at its
+  full shape: one warm-up and 30 timed K8 dot_probe calls in bf16 and in
+  int8, its outputs against the plain version;
 
 checks that the kernels carried each path (launch counts, set to 0 just
 before a path and read just after), and times the kernels, a PyTorch
@@ -61,6 +64,10 @@ TRAIN_BOUND = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # forward rounds after every op, the kernels once per conv (the serving
 # slice's bound)
 UNET_BF16_BOUND = 1e-2
+# K8 bf16 vs plain: float32 sums of exact bf16 products in another order
+# than the plain version's float64 (int8 must be exact)
+K8_BF16_BOUND = 1e-4
+K8_ITERS = 30  # timed calls per type on the tool's path (plus one warm-up)
 # static scene, kernel path: the crop's interior against the full frame.
 # Align-corners upsampling samples the crop's coarse levels at other
 # points than the full frame's (up to half a coarse pixel apart), and bf16
@@ -68,10 +75,10 @@ UNET_BF16_BOUND = 1e-2
 # the non-square crop moves it by the activations' own size
 STATIC_GAP_BOUND = 1e-2
 TRAIN_B, SYNC_B = 8, 2
-# NVIDIA H100 SXM data sheet: dense bf16 tensor-core and float32 (no tensor
-# core) peaks, HBM3 rate; a bound is the larger of ops / peak and bytes /
-# rate, each input read once and each output written once
-PEAK = {"bf16": 989e12, "f32": 67e12}
+# NVIDIA H100 SXM data sheet: dense bf16 and int8 tensor-core and float32
+# (no tensor core) peaks, HBM3 rate; a bound is the larger of ops / peak
+# and bytes / rate, each input read once and each output written once
+PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 # (block.conv, H=W, cin) of the U-Net's ten convs at 500x500, and (block,
 # H=W, cin) of its five DoubleConvs; the weights give cmid and cout
@@ -305,12 +312,14 @@ def main() -> int:
     from speech2lip_tpu_torch.ops.kernels import _build
     from speech2lip_tpu_torch.ops.kernels import conv_block as kcb
     from speech2lip_tpu_torch.ops.kernels import conv_hcw as kch
+    from speech2lip_tpu_torch.ops.kernels import dot_probe as kdp
     from speech2lip_tpu_torch.ops.kernels import fused_block as kfb
     from speech2lip_tpu_torch.ops.kernels import fused_mlp as kmlp
     from speech2lip_tpu_torch.ops.kernels import hat_sample as khs
     from speech2lip_tpu_torch.ops.kernels import window_sample as kws
     from speech2lip_tpu_torch.ops.kernels.conv_block import fold_bn
     from speech2lip_tpu_torch.ops import geometry
+    from speech2lip_tpu_torch.tools import bench_int8_dot as k8tool
     from speech2lip_tpu_torch.train import train_step as ts
     from speech2lip_tpu_torch.train import trainer
 
@@ -553,6 +562,30 @@ def main() -> int:
                 f"local bytes, {at['smem_bytes']} shared bytes")
             require(dtype != torch.bfloat16 or at["local_bytes"] == 0,
                     f"{what} uses local memory")
+
+    # -- phase 2b: K8, the dot probe, at its full shape, both types ------
+    k8_in = k8tool.make_inputs(device=dev)
+    k8_shape = (f"lhs {tuple(k8_in['bf16'][0].shape)} rhs "
+                f"{tuple(k8_in['bf16'][1].shape)} T={k8tool.T}")
+    k8_err = {}
+    for dn, (lhs, rhs) in k8_in.items():
+        got = kdp.dot_probe(lhs, rhs, k8tool.T)
+        ref = kdp.dot_probe_plain(lhs, rhs, k8tool.T)
+        if dn == "int8":
+            require(got.shape == ref.shape and got.dtype == ref.dtype,
+                    f"K8 int8 output {got.dtype} {tuple(got.shape)}")
+            k8_err[dn] = float((got.long() - ref.long()).abs().max())
+            log(f"# check K8 dot_probe int8 {k8_shape}: max|diff| "
+                f"{k8_err[dn]:.3g}, bound 0 (int32 sums of integers)")
+            require(k8_err[dn] == 0, "K8 int8 differs from its plain version")
+        else:
+            k8_err[dn] = check(f"K8 dot_probe bf16 {k8_shape}", [(got, ref)],
+                               K8_BF16_BOUND)
+        at = kdp.dot_probe_attrs(lhs.dtype)
+        log(f"# K8 attrs {dn}: {at['regs']} registers, {at['local_bytes']} "
+            f"local bytes, {at['smem_bytes']} shared bytes")
+        require(at["local_bytes"] == 0, f"K8 {dn} uses local memory")
+    del got, ref
 
     # -- phase 3: the main path, three batches through the Renderer --------
     cfg = default_config()
@@ -805,13 +838,35 @@ def main() -> int:
         ts.tree_leaves(ynew.unet_params), ts.tree_leaves(ystate.unet_params))),
         "the frozen U-Net moved")
 
+    # -- phase 3e: the dot probe's tool at its full shape -----------------
+    kdp.launches = 0
+    k8_run = k8tool.run(device=dev, iters=K8_ITERS)
+    torch.cuda.synchronize()
+    k8_launches = {dn: r["launches"] for dn, r in k8_run.items()}
+    log(f"# bench_int8_dot path: K8 launches {k8_launches}, total "
+        f"{kdp.launches}")
+    require(kdp.launches == 2 * (1 + K8_ITERS)
+            and all(v == 1 + K8_ITERS for v in k8_launches.values()),
+            f"bench_int8_dot: K8 launches {k8_launches}, expected "
+            f"{1 + K8_ITERS} per type")
+    for dn, r in k8_run.items():
+        ref = kdp.dot_probe_plain(r["lhs"], r["rhs"], k8tool.T)
+        if dn == "int8":
+            require(torch.equal(r["out"], ref),
+                    "bench_int8_dot: int8 output differs from plain")
+        else:
+            check("bench_int8_dot bf16 output", [(r["out"], ref)],
+                  K8_BF16_BOUND)
+    del k8_run, ref
+
     # -- phase 4: timing (bf16, the serving dtype) -------------------------
     # each kernel's ms, its plain version's, one PyTorch library call's
     # computing the same function (None, with a note, where there is none)
     # and the bound from this run's shapes
     rows = {}
 
-    def row(name, ms, plain_ms, library_ms, ops, moved, peak, note=None):
+    def row(name, ms, plain_ms, library_ms, ops, moved, peak, note=None,
+            dn="bf16"):
         b_ms, by = bound(ops, moved, peak)
         rows[name] = {"ms": ms, "plain_ms": plain_ms,
                       "library_ms": library_ms, "bound_ms": b_ms,
@@ -819,7 +874,7 @@ def main() -> int:
         if note:
             rows[name]["library_note"] = note
         lib = f"{library_ms:.4f} ms" if library_ms is not None else note
-        log(f"# time {name} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        log(f"# time {name} {dn}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
             f"ms, library {lib}; bound {b_ms:.4f} ms by {by} "
             f"({ops / 1e9:.2f} Gop, {moved / 1e6:.2f} MB)")
 
@@ -1007,6 +1062,47 @@ def main() -> int:
         min(nbytes(src), 4 * nbytes(cot)) + nbytes(grid, cot, dgrid), "f32")
     del cases, src, src32, dsrc
 
+    # K8 at the probe's shape.  Library: one cuBLAS call doing the same
+    # 2*M*K*N*G*T operations, lhs tiled to [T*M, G*K] (materialised) times
+    # rhs as [G*K, N]: torch.matmul in bf16 (bf16 output, half K8's output
+    # bytes), torch._int_mm in int8 (rhs given column-major, the layout
+    # cuBLASLt's int8 kernels take, made outside the timed call).  The
+    # plain version computes one [M, N] tile and repeats it (1/T of the
+    # operations)
+    m8, k8, n8, g8, t8 = (k8tool.M, k8tool.K, k8tool.N, k8tool.G, k8tool.T)
+    ops8 = 2.0 * m8 * k8 * n8 * g8 * t8
+    k8_rate = {}
+    for dn, (lhs, rhs) in k8_in.items():
+        out = kdp.dot_probe(lhs, rhs, t8)
+        a_t = lhs.repeat(t8, g8)
+        b_f = rhs.reshape(g8 * k8, n8)
+        if dn == "int8":
+            b_f = b_f.t().contiguous().t()
+            lib = lambda: torch._int_mm(a_t, b_f)
+            note = ("torch._int_mm (cuBLASLt s8 x s8 -> s32), lhs tiled to "
+                    "[T*M, G*K], rhs column-major [G*K, N]")
+        else:
+            lib = lambda: torch.matmul(a_t, b_f)
+            note = ("torch.matmul (cuBLAS), lhs tiled to [T*M, G*K], rhs "
+                    "[G*K, N]; bf16 output, half K8's output bytes")
+        lref = lib()
+        log(f"# K8 {dn} vs the library call, program 0: max|diff| "
+            f"{float((lref[:m8].double() - out[0].double()).abs().max()):.3g}")
+        del lref
+        km = cuda_ms(lambda: kdp.dot_probe(lhs, rhs, t8))
+        pm = cuda_ms(lambda: kdp.dot_probe_plain(lhs, rhs, t8))
+        lm = cuda_ms(lib)
+        row(f"dot_probe_{dn}", km, pm, lm, ops8, nbytes(lhs, rhs, out), dn,
+            note=note, dn=dn)
+        unit = "TOP/s" if dn == "int8" else "TFLOP/s"
+        k8_rate[dn] = ops8 / km / 1e9
+        log(f"# time K8 {dn}: {k8_rate[dn]:.1f} {unit} ({ops8 / lm / 1e9:.1f} "
+            f"library); kernel / library time {km / lm:.3f}x; "
+            f"{100 * k8_rate[dn] * 1e12 / PEAK[dn]:.1f}% of the peak")
+    log(f"# time K8 int8 / bf16 rate: {k8_rate['int8'] / k8_rate['bf16']:.3f}x "
+        f"on {card}")
+    del a_t, b_f, out
+
     # the U-Net entry points at 500x500, batch 8
     for name, fn in (("apply_infer_hcw (10 K4)", unet_light.apply_infer_hcw),
                      ("apply_infer_pallas (10 K6)",
@@ -1098,7 +1194,14 @@ def main() -> int:
                         "replaces": pallas + replaces, "path": path,
                         "launches": launches[name],
                         "max_abs_err": errs[(name, bf)], **rows[name]})
-    require(all(k["launches"] > 0 for k in kernels),
+    for dn in ("bf16", "int8"):
+        kernels.append({"name": f"dot_probe_{dn}", "route": "cuda",
+                        "source": "speech2lip_tpu_torch/csrc/dot_probe.cu",
+                        "replaces": "tools/bench_int8_dot.py:44",
+                        "path": "bench_int8_dot",
+                        "launches": k8_launches[dn],
+                        "max_abs_err": k8_err[dn], **rows[f"dot_probe_{dn}"]})
+    require(len(kernels) == 11 and all(k["launches"] > 0 for k in kernels),
             "a kernel was not launched on its path")
     log(f"# train bf16 kernel vs plain path worst rel {train_err:.3g}")
     print(card, flush=True)

@@ -106,4 +106,31 @@ __device__ __forceinline__ void mma_tile(float (&acc)[kTileFrags][8][4],
   }
 }
 
+// ---- int8 (mma.m16n8k32 .s8, .row.col, s32 accumulate) ------------------
+// A is 16 rows x 32 bytes in four .b32 registers, B 32 (k) x 8 (n) in two,
+// C as the bf16 MMA's but int32.  In bytes the fragments are the bf16
+// ones: ldsm_x4 gives A from a row-major tile of 32-byte k steps, and B
+// from a tile stored [n][k] (each B register is four k of one n column).
+// No transposed load exists for 8-bit elements, so B must be k-contiguous
+// in shared memory.
+
+// c += a (16x32 s8) * b (32x8 s8), int32 accumulate (wraps; no saturation).
+__device__ __forceinline__ void mma_s8_16832(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                             uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void zero_tile(int (&acc)[kTileFrags][8][4]) {
+#pragma unroll
+  for (int f = 0; f < kTileFrags; ++f)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[f][j][e] = 0;
+}
+
 }  // namespace s2l

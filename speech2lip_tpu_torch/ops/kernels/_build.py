@@ -68,6 +68,13 @@ SIGNATURES = {
                               _I, _I, _P],
     "hat_sample_dgrid_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P],
+    # (lhs, rhs, out, m, k, n, g, t, stream)
+    "dot_probe_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (lhs, rhs, rhs_nk scratch, out, m, k, n, g, t, stream)
+    "dot_probe_s8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (s8, regs*, local_bytes*, smem_bytes*): the K8 dot kernel's
+    # cudaFuncGetAttributes
+    "dot_probe_attrs": [_I, _IP, _IP, _IP],
 }
 
 _lib = None

@@ -18,6 +18,7 @@ from speech2lip_tpu_torch.ops.coords import get_coords
 from speech2lip_tpu_torch.ops.embedders import fourier_embed
 from speech2lip_tpu_torch.ops.kernels import conv_block as kcb
 from speech2lip_tpu_torch.ops.kernels import conv_hcw as kch
+from speech2lip_tpu_torch.ops.kernels import dot_probe as kdp
 from speech2lip_tpu_torch.ops.kernels import fused_block as kfb
 from speech2lip_tpu_torch.ops.kernels import fused_mlp as kmlp
 from speech2lip_tpu_torch.ops.kernels import hat_sample as khs
@@ -250,14 +251,18 @@ def test_double_conv_kernel_tile_edges(cuda, dtype, cin, cmid, cout, edge,
     assert _rel_err(got, kch.double_conv_hcw_plain(*args)) < BOUND[dtype]
 
 
-@pytest.mark.parametrize("kernel", ["double_conv", "conv3x3"])
+@pytest.mark.parametrize("kernel", ["double_conv", "conv3x3", "dot_probe"])
 def test_bf16_kernels_have_no_local_memory(cuda, kernel):
     """Every bf16 instance of K5 (Cmid, Cout in {64, 128}) and of the conv
-    kernel behind K3/K4/K6 (Cout 64, 128, 256) keeps its accumulators in
-    registers: no spills, no local memory."""
+    kernel behind K3/K4/K6 (Cout 64, 128, 256), and K8's bf16 and int8
+    dot kernels, keep their accumulators in registers: no spills, no local
+    memory."""
     if kernel == "double_conv":
         insts = [kch.double_conv_attrs(torch.bfloat16, cmid, cout)
                  for cmid in (64, 128) for cout in (64, 128)]
+    elif kernel == "dot_probe":
+        insts = [kdp.dot_probe_attrs(dt) for dt in (torch.bfloat16,
+                                                    torch.int8)]
     else:
         insts = [kfb.conv3x3_attrs(torch.bfloat16, cout)
                  for cout in (64, 128, 256)]
@@ -405,3 +410,59 @@ def test_wrappers_raise_on_bad_input(cuda):
     with pytest.raises(ValueError):
         khs.hat_sample_dsrc(grid, torch.zeros(1, 6, 3, device=cuda), 4, 4,
                             0, 0, 8, 8)
+
+
+# (M, K, N, G, T): the probe's shape, then T 1 and 3, G 1 and 8, N one and
+# two 256-column block tiles, M two 128-row tiles, K 512
+DOT_SHAPES = [(128, 768, 512, 8, 256), (128, 768, 256, 1, 1),
+              (128, 768, 512, 1, 3), (128, 768, 256, 8, 3),
+              (256, 512, 512, 2, 3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("m,k,n,g,t", DOT_SHAPES)
+def test_dot_probe_kernel(cuda, dtype, m, k, n, g, t):
+    """K8 against its plain version: int8 exactly (int32 sums of the same
+    integers); bf16 within 1e-4 of max(1, max|plain|) (float32 sums of
+    exact products in another order than float64)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    if dtype == torch.int8:
+        lhs, rhs = (torch.randint(-128, 128, s, device=cuda, generator=gen,
+                                  dtype=torch.int8)
+                    for s in ((m, k), (g, k, n)))
+    else:
+        lhs, rhs = (torch.randn(s, device=cuda, generator=gen).to(dtype)
+                    for s in ((m, k), (g, k, n)))
+    before = kdp.launches
+    got = kdp.dot_probe(lhs, rhs, t)
+    torch.cuda.synchronize()
+    assert kdp.launches == before + 1
+    ref = kdp.dot_probe_plain(lhs, rhs, t)
+    assert got.dtype == ref.dtype and got.shape == (t, m, n)
+    if dtype == torch.int8:
+        assert torch.equal(got, ref)
+    else:
+        assert _rel_err(got, ref) <= 1e-4
+
+
+def test_dot_probe_raises_on_what_it_does_not_take(cuda):
+    lhs = torch.zeros(128, 768, device=cuda, dtype=torch.int8)
+    rhs = torch.zeros(2, 768, 256, device=cuda, dtype=torch.int8)
+    with pytest.raises(TypeError):
+        kdp.dot_probe(lhs.float(), rhs.float(), 1)            # float32
+    with pytest.raises(TypeError):
+        kdp.dot_probe(lhs, rhs.bfloat16(), 1)                 # mixed
+    with pytest.raises(ValueError):
+        kdp.dot_probe(lhs[:64], rhs, 1)                       # M 64
+    with pytest.raises(ValueError):
+        kdp.dot_probe(lhs, rhs[..., :128].contiguous(), 1)    # N 128
+    with pytest.raises(ValueError):
+        kdp.dot_probe(lhs[:, :704].contiguous(),
+                      rhs[:, :704].contiguous(), 1)           # K 704
+    with pytest.raises(ValueError):
+        kdp.dot_probe(lhs, rhs, 0)                            # t 0
+    with pytest.raises(ValueError):
+        kdp.dot_probe(lhs, rhs.transpose(1, 2).contiguous().transpose(1, 2),
+                      1)                                      # not contiguous
+    with pytest.raises(ValueError):
+        kdp.dot_probe(lhs, rhs.cpu(), 1)                      # two devices

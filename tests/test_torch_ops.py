@@ -188,7 +188,7 @@ mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in mods:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
-assert len(mods) >= 31, mods
+assert len(mods) >= 34, mods
 
 def banned(name):
     top = name.split(".")[0]
@@ -211,4 +211,4 @@ print(len(files))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 32
+    assert int(res.stdout.split()[-1]) >= 35
