@@ -21,8 +21,9 @@ made from a seed:
   against the plain path, a float32 step on a small input, and one
   sync-stage step (SyncNet loss, frozen U-Net) at batch 2;
 - the dot probe's tool (speech2lip_tpu_torch.tools.bench_int8_dot) at its
-  full shape: one warm-up and 30 timed K8 dot_probe calls in bf16 and in
-  int8, its outputs against the plain version;
+  full shape and its own count of calls: one warm-up and ITERS timed K8
+  dot_probe calls in bf16 and in int8, its outputs against the plain
+  version;
 
 checks that the kernels carried each path (launch counts, set to 0 just
 before a path and read just after), and times the kernels, a PyTorch
@@ -67,7 +68,6 @@ UNET_BF16_BOUND = 1e-2
 # K8 bf16 vs plain: float32 sums of exact bf16 products in another order
 # than the plain version's float64 (int8 must be exact)
 K8_BF16_BOUND = 1e-4
-K8_ITERS = 30  # timed calls per type on the tool's path (plus one warm-up)
 # static scene, kernel path: the crop's interior against the full frame.
 # Align-corners upsampling samples the crop's coarse levels at other
 # points than the full frame's (up to half a coarse pixel apart), and bf16
@@ -839,16 +839,18 @@ def main() -> int:
         "the frozen U-Net moved")
 
     # -- phase 3e: the dot probe's tool at its full shape -----------------
+    # kdp.launches counts dot_probe calls that reached the card; an int8
+    # call launches two kernels, the re-layout of rhs and then the dot
     kdp.launches = 0
-    k8_run = k8tool.run(device=dev, iters=K8_ITERS)
+    k8_run = k8tool.run(device=dev)
     torch.cuda.synchronize()
     k8_launches = {dn: r["launches"] for dn, r in k8_run.items()}
     log(f"# bench_int8_dot path: K8 launches {k8_launches}, total "
         f"{kdp.launches}")
-    require(kdp.launches == 2 * (1 + K8_ITERS)
-            and all(v == 1 + K8_ITERS for v in k8_launches.values()),
-            f"bench_int8_dot: K8 launches {k8_launches}, expected "
-            f"{1 + K8_ITERS} per type")
+    require(kdp.launches == 2 * (1 + k8tool.ITERS)
+            and all(v == 1 + k8tool.ITERS for v in k8_launches.values()),
+            f"bench_int8_dot: K8 calls {k8_launches}, expected "
+            f"{1 + k8tool.ITERS} per type")
     for dn, r in k8_run.items():
         ref = kdp.dot_probe_plain(r["lhs"], r["rhs"], k8tool.T)
         if dn == "int8":
@@ -865,8 +867,7 @@ def main() -> int:
     # and the bound from this run's shapes
     rows = {}
 
-    def row(name, ms, plain_ms, library_ms, ops, moved, peak, note=None,
-            dn="bf16"):
+    def row(name, ms, plain_ms, library_ms, ops, moved, peak, note=None):
         b_ms, by = bound(ops, moved, peak)
         rows[name] = {"ms": ms, "plain_ms": plain_ms,
                       "library_ms": library_ms, "bound_ms": b_ms,
@@ -874,9 +875,9 @@ def main() -> int:
         if note:
             rows[name]["library_note"] = note
         lib = f"{library_ms:.4f} ms" if library_ms is not None else note
-        log(f"# time {name} {dn}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        log(f"# time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
             f"ms, library {lib}; bound {b_ms:.4f} ms by {by} "
-            f"({ops / 1e9:.2f} Gop, {moved / 1e6:.2f} MB)")
+            f"({ops / 1e9:.2f} Gop at the {peak} peak, {moved / 1e6:.2f} MB)")
 
     def crop_grid(grid, y_off, x_off, h, w, hs, ws):
         """grid [B, P, 2], normalised to the full h x w image
@@ -1068,7 +1069,8 @@ def main() -> int:
     # bytes), torch._int_mm in int8 (rhs given column-major, the layout
     # cuBLASLt's int8 kernels take, made outside the timed call).  The
     # plain version computes one [M, N] tile and repeats it (1/T of the
-    # operations)
+    # operations).  An int8 call also moves the re-laid rhs [G, N, K]: its
+    # re-layout launch writes it once and the dot reads it once
     m8, k8, n8, g8, t8 = (k8tool.M, k8tool.K, k8tool.N, k8tool.G, k8tool.T)
     ops8 = 2.0 * m8 * k8 * n8 * g8 * t8
     k8_rate = {}
@@ -1092,8 +1094,9 @@ def main() -> int:
         km = cuda_ms(lambda: kdp.dot_probe(lhs, rhs, t8))
         pm = cuda_ms(lambda: kdp.dot_probe_plain(lhs, rhs, t8))
         lm = cuda_ms(lib)
-        row(f"dot_probe_{dn}", km, pm, lm, ops8, nbytes(lhs, rhs, out), dn,
-            note=note, dn=dn)
+        moved = nbytes(lhs, rhs, out) + (2 * rhs.numel() if dn == "int8"
+                                         else 0)
+        row(f"dot_probe_{dn}", km, pm, lm, ops8, moved, dn, note=note)
         unit = "TOP/s" if dn == "int8" else "TFLOP/s"
         k8_rate[dn] = ops8 / km / 1e9
         log(f"# time K8 {dn}: {k8_rate[dn]:.1f} {unit} ({ops8 / lm / 1e9:.1f} "

@@ -17,7 +17,9 @@ import torch
 
 from speech2lip_tpu_torch.ops.kernels import _build
 
-launches = 0  # kernel launches by ``dot_probe`` in this process
+# ``dot_probe`` calls that reached the card in this process; an int8 call
+# launches two kernels, the re-layout of rhs and then the dot
+launches = 0
 
 _ACC = {torch.bfloat16: torch.float32, torch.int8: torch.int32}
 
@@ -38,7 +40,7 @@ def dot_probe(lhs, rhs, t: int):
     """t programs of out[i] = sum_g lhs @ rhs[g]: lhs [M, K], rhs [G, K, N],
     both bfloat16 or both int8, contiguous.  Returns [t, M, N] float32 or
     int32.  On the card M must be a multiple of 128, N of 256 and K of
-    128."""
+    256, in both types."""
     if lhs.device.type == "cpu":
         return dot_probe_plain(lhs, rhs, t)
     global launches

@@ -139,7 +139,25 @@ def test_main_without_a_card_raises(monkeypatch):
         tool.main([])
 
 
-def test_main_on_cpu_runs_the_probes_shape(capsys):
-    tool.main(["--device", "cpu", "--iters", "1"])
+def test_main_on_cpu_runs_the_probes_shape(monkeypatch):
+    """``--device cpu`` is main's one option: the probe's shape and its
+    count of timed calls are run()'s defaults."""
+    assert tool.run.__defaults__ == (128, 768, 512, 8, 256, None, 30)
+    assert tool.ITERS == 30
+    calls = []
+    monkeypatch.setattr(tool, "run", lambda **kw: calls.append(kw))
+    tool.main(["--device", "cpu"])
+    assert calls == [{"device": "cpu"}]
+    with pytest.raises(SystemExit):
+        tool.main(["--device", "cpu", "--iters", "1"])
+
+
+def test_run_on_cpu_at_the_probes_shape(capsys):
+    kdp.launches = 0
+    res = tool.run(device="cpu", iters=1)
     lines = capsys.readouterr().out.splitlines()
     assert [ln.split(":")[0] for ln in lines] == ["# device", "bf16", "int8"]
+    assert kdp.launches == 0
+    for name, dt in (("bf16", torch.float32), ("int8", torch.int32)):
+        out = res[name]["out"]
+        assert out.dtype == dt and out.shape == (tool.T, tool.M, tool.N)

@@ -459,6 +459,10 @@ def test_dot_probe_raises_on_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         kdp.dot_probe(lhs[:, :704].contiguous(),
                       rhs[:, :704].contiguous(), 1)           # K 704
+    for x, y in ((lhs, rhs), (lhs.bfloat16(), rhs.bfloat16())):
+        with pytest.raises(ValueError):
+            kdp.dot_probe(x[:, :640].contiguous(),
+                          y[:, :640].contiguous(), 1)         # K 640 = 5 x 128
     with pytest.raises(ValueError):
         kdp.dot_probe(lhs, rhs, 0)                            # t 0
     with pytest.raises(ValueError):
