@@ -26,10 +26,14 @@ made from a seed:
   version;
 
 checks that the kernels carried each path (launch counts, set to 0 just
-before a path and read just after), and times the kernels, a PyTorch
-library call computing the same function where there is one, and the
-paths with CUDA events.  Needs one CUDA device; without one it exits
-non-zero before printing any result.
+before a path and read just after) and that the composite hands K2 the
+frame's crop and the coord grid's window as views, with no copy op; and
+times the kernels, a PyTorch library call computing the same function
+where there is one, and the paths with CUDA events.  K2 and K7 get two
+times each, in turns with their library call: the call time (the row's
+ms, the host's dispatch included) and the device time (a CUDA graph of
+100 calls replayed, device_ms).  Needs one CUDA device; without one it
+exits non-zero before printing any result.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 each kernel's launches on its path, error, times and bound.
@@ -205,11 +209,11 @@ PROFILE_GROUPS = (
 )
 
 
-def profile_steps(run, what: str, step_ms: float, steps: int = 2) -> float:
+def profile_steps(run, what: str, step_ms: float, steps: int = 2):
     """Device time of ``steps`` calls of ``run`` by kernel group and the
     busiest kernels (torch.profiler), against ``step_ms`` of CUDA-event
-    wall time per step measured without the profiler.  Returns the device
-    ms per step."""
+    wall time per step measured without the profiler.  Returns (device ms,
+    kernel launches) per step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -247,7 +251,7 @@ def profile_steps(run, what: str, step_ms: float, steps: int = 2) -> float:
         log(f"# profile   {name}: {ms:.2f} ms ({100 * ms / total:.1f}%)")
     for key, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
         log(f"# profile   top {ms:.3f} ms {key[:110]}")
-    return total
+    return total, launches // steps
 
 
 def train_inputs(dev, b, face, lip_h, lip_w, with_sync=False):
@@ -320,6 +324,7 @@ def main() -> int:
     from speech2lip_tpu_torch.ops.kernels.conv_block import fold_bn
     from speech2lip_tpu_torch.ops import geometry
     from speech2lip_tpu_torch.tools import bench_int8_dot as k8tool
+    from speech2lip_tpu_torch.tools import bench_window_sample as k2tool
     from speech2lip_tpu_torch.train import train_step as ts
     from speech2lip_tpu_torch.train import trainer
 
@@ -371,10 +376,14 @@ def main() -> int:
     wy0, wx0, wh, ww = window
 
     def k2_args(dtype):
-        src = torch.rand(8, y1b - y0b + 2, x1b - x0b + 2, 3, device=dev,
-                         generator=gen).to(dtype)
-        grid = batch["coord"][:, wy0:wy0 + wh, wx0:wx0 + ww].reshape(
-            8, wh * ww, 2).contiguous()
+        """K2 as the composite calls it: the lip box's crop of a frame and
+        the warp window of the coord grid, both views read in place."""
+        frame = torch.rand(8, FACE, FACE, 3, device=dev,
+                           generator=gen).to(dtype)
+        src = frame[:, y0b - 1:y1b + 1, x0b - 1:x1b + 1]
+        grid = batch["coord"][:, wy0:wy0 + wh, wx0:wx0 + ww]
+        require(not (src.is_contiguous() or grid.is_contiguous()),
+                "K2's inputs must be strided views")
         return (src, grid, y0b - 1, x0b - 1, FACE, FACE)
 
     def k3_cases(dtype, h=FACE, w=FACE, b=8):
@@ -477,11 +486,14 @@ def main() -> int:
             [(kmlp.fused_mlp(*a), kmlp.fused_mlp_plain(*a))], BOUND[dtype])
 
         a = k2_args(dtype)
+        got = kws.window_sample(*a)
         errs[("window_sample", dtype)] = check(
-            f"K2 window_sample {dn} crop {tuple(a[0].shape[1:3])} "
-            f"P={a[1].shape[1]}",
-            [(kws.window_sample(*a), kws.window_sample_plain(*a))],
-            K2_BOUND[dtype])
+            f"K2 window_sample {dn} crop view {tuple(a[0].shape[1:3])} of "
+            f"{FACE}x{FACE}, window view {tuple(a[1].shape[1:3])}",
+            [(got, kws.window_sample_plain(*a))], K2_BOUND[dtype])
+        require(torch.equal(got, kws.window_sample(
+            a[0].contiguous(), a[1].reshape(8, -1, 2).contiguous(), *a[2:])),
+            "K2 on the views differs from K2 on contiguous copies")
 
         # K3 on the full frame (the Renderer) and on the static scene's
         # crop, which is not square and no tile multiple at any level
@@ -588,6 +600,7 @@ def main() -> int:
     del got, ref
 
     # -- phase 3: the main path, three batches through the Renderer --------
+    bf = torch.bfloat16
     cfg = default_config()
     cfg["model"]["compute_dtype"] = "bfloat16"
     params = weights.random_params(SEED)
@@ -623,6 +636,32 @@ def main() -> int:
         require(e <= SLICE_BF16_BOUND,
                 f"slice {key} disagrees with the plain path")
 
+    # the composite's window sample reads the frame's crop and the coord
+    # grid's window in place: no copy op between the slices and K2
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpLog(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(func.__name__)
+            return func(*args, **(kwargs or {}))
+
+    frame = torch.rand(8, FACE, FACE, 3, device=dev, generator=gen).to(bf)
+    with OpLog() as oplog:
+        tf._sample_box_region(frame, batch["coord"][:, wy0:wy0 + wh,
+                                                    wx0:wx0 + ww],
+                              box, FACE, FACE, use_kernels=True)
+    copies = [op for op in oplog.ops
+              if op.split(".")[0] in ("clone", "copy_", "_to_copy",
+                                      "contiguous")]
+    log(f"# composite window sample (kernels): ops {oplog.ops}; copies "
+        f"{copies or 'none'}")
+    require(not copies, f"the composite copies K2's inputs: {copies}")
+    del frame
+
     # the slice in float32 on a small input, kernels vs plain path
     small, sgeo = synthetic_batch(2, face=64, lip_h=16, lip_w=24, seed=SEED)
     small = {k: torch.from_numpy(v).to(dev) for k, v in small.items()}
@@ -649,7 +688,6 @@ def main() -> int:
     log(f"# render_pixels bf16 4x{LIP_H * LIP_W} pixels: K1 launches 1")
 
     # -- phase 3c: the U-Net's inference entry points, 500x500, batch 8 ----
-    bf = torch.bfloat16
     _, up_bf, us_bf = weights.random_params(SEED, device=dev, dtype=bf)
     ux = torch.rand(8, FACE, FACE, 3, device=dev, generator=gen).to(bf)
     uref, _ = unet_light.apply(up_bf, us_bf, ux)
@@ -867,11 +905,12 @@ def main() -> int:
     # and the bound from this run's shapes
     rows = {}
 
-    def row(name, ms, plain_ms, library_ms, ops, moved, peak, note=None):
+    def row(name, ms, plain_ms, library_ms, ops, moved, peak, note=None,
+            extra=None):
         b_ms, by = bound(ops, moved, peak)
         rows[name] = {"ms": ms, "plain_ms": plain_ms,
                       "library_ms": library_ms, "bound_ms": b_ms,
-                      "bound_by": by}
+                      "bound_by": by, **(extra or {})}
         if note:
             rows[name]["library_note"] = note
         lib = f"{library_ms:.4f} ms" if library_ms is not None else note
@@ -879,14 +918,22 @@ def main() -> int:
             f"ms, library {lib}; bound {b_ms:.4f} ms by {by} "
             f"({ops / 1e9:.2f} Gop at the {peak} peak, {moved / 1e6:.2f} MB)")
 
-    def crop_grid(grid, y_off, x_off, h, w, hs, ws):
-        """grid [B, P, 2], normalised to the full h x w image
-        (align_corners=False), renormalised to the [hs, ws] crop at
-        (y_off, x_off): [B, 1, P, 2] for F.grid_sample."""
-        ix = ((grid[..., 0] + 1) * w - 1) / 2 - x_off
-        iy = ((grid[..., 1] + 1) * h - 1) / 2 - y_off
-        return torch.stack([(2 * ix + 1) / ws - 1, (2 * iy + 1) / hs - 1],
-                           -1)[:, None]
+    def timed_turns(name, kernel, library):
+        """Call time (eager calls between two events, the host's dispatch
+        included) and device time (one CUDA graph of 100 calls, replayed)
+        of a kernel and its library call, in turns kernel, library,
+        library, kernel; and each one's kernel time in a profile.  Returns
+        (kernel call ms, library call ms, the row's extra keys)."""
+        t = k2tool.in_turns({"kernel": kernel, "library": library})
+        k, lib = t["kernel"], t["library"]
+        log(f"# time {name} in turns: call {k['call_ms_turns']} ms, device "
+            f"{k['device_ms_turns']} ms, profiled {k['profiled_ms']}; "
+            f"library call {lib['call_ms_turns']} ms, device "
+            f"{lib['device_ms_turns']} ms, profiled {lib['profiled_ms']}")
+        return k["call_ms"], lib["call_ms"], {
+            "device_ms": k["device_ms"], "profiled_ms": k["profiled_ms"],
+            "library_device_ms": lib["device_ms"],
+            "library_profiled_ms": lib["profiled_ms"]}
 
     def mlp_row(name, a):
         """K1 / K1b: uv [N, 42] through the input and skip projections
@@ -908,20 +955,23 @@ def main() -> int:
     mlp_row("fused_mlp_one_frame",
             (fourier_embed(ens.reshape(-1, 2), 10).to(bf),) + a[1:])
 
+    # K2 on the composite's views; grid_sample takes one dtype for source
+    # and grid: float32 copies of the crop and the window, made outside
+    # the timed call
     a = k2_args(bf)
     src, grid = a[0], a[1]
     out = kws.window_sample(*a)
-    # grid_sample takes one dtype for source and grid: float32 copies
     src32 = src.float().permute(0, 3, 1, 2).contiguous()
-    g4 = crop_grid(grid, *a[2:], *src.shape[1:3])
+    g4 = k2tool.crop_grid(grid.reshape(8, -1, 2), *a[2:], *src.shape[1:3])
     lib = lambda: F.grid_sample(src32, g4, mode="bilinear",
                                 padding_mode="zeros", align_corners=False)
     log(f"# K2 vs F.grid_sample on the crop: max|diff| "
         f"{float((lib()[:, :, 0].transpose(1, 2) - out.float()).abs().max()):.3g}")
-    row("window_sample", cuda_ms(lambda: kws.window_sample(*a)),
-        cuda_ms(lambda: kws.window_sample_plain(*a)), cuda_ms(lib),
-        8.0 * src.shape[3] * grid.shape[0] * grid.shape[1],
-        nbytes(src, grid, out), "f32")
+    k_ms, l_ms, extra = timed_turns(
+        "K2 window_sample", lambda: kws.window_sample(*a), lib)
+    row("window_sample", k_ms, cuda_ms(lambda: kws.window_sample_plain(*a)),
+        l_ms, 8.0 * src.shape[3] * out.shape[0] * out.shape[1],
+        nbytes(src, grid, out), "f32", extra=extra)
 
     # K3's plain version (float32 convs) is its correctness oracle; the
     # plain path serves each block as bf16 cuDNN convs (unet_light.apply's
@@ -1038,29 +1088,32 @@ def main() -> int:
     _, src, grid, cot, g_geo = cases["window"]
     dsrc = khs.hat_sample_dsrc(grid, cot, FACE, FACE, *g_geo)
     src32 = src.float().permute(0, 3, 1, 2).contiguous()
-    g4 = crop_grid(grid, *g_geo, FACE, FACE)
+    g4 = k2tool.crop_grid(grid, *g_geo, FACE, FACE)
     cot32 = cot.float().transpose(1, 2)[:, :, None].contiguous()
     backward = torch.ops.aten.grid_sampler_2d_backward
-    row("hat_sample_dsrc",
-        cuda_ms(lambda: khs.hat_sample_dsrc(grid, cot, FACE, FACE, *g_geo)),
+    k_ms, l_ms, extra = timed_turns(
+        "K7 hat_sample_dsrc",
+        lambda: khs.hat_sample_dsrc(grid, cot, FACE, FACE, *g_geo),
+        lambda: backward(cot32, src32, g4, 0, 0, False, [True, False]))
+    row("hat_sample_dsrc", k_ms,
         cuda_ms(lambda: khs.hat_sample_dsrc_plain(grid, cot, FACE, FACE,
                                                   *g_geo)),
-        cuda_ms(lambda: backward(cot32, src32, g4, 0, 0, False,
-                                 [True, False])),
-        8.0 * cot.numel(), nbytes(grid, cot, dsrc), "f32")
+        l_ms, 8.0 * cot.numel(), nbytes(grid, cot, dsrc), "f32", extra=extra)
     _, src, grid, cot, g_geo = cases["points"]
     dgrid = khs.hat_sample_dgrid(src, grid, cot, *g_geo)
     src32 = src.float().permute(0, 3, 1, 2).contiguous()
-    g4 = crop_grid(grid, *g_geo, FACE, FACE)
+    g4 = k2tool.crop_grid(grid, *g_geo, FACE, FACE)
     cot32 = cot.float().transpose(1, 2)[:, :, None].contiguous()
+    k_ms, l_ms, extra = timed_turns(
+        "K7 hat_sample_dgrid",
+        lambda: khs.hat_sample_dgrid(src, grid, cot, *g_geo),
+        lambda: backward(cot32, src32, g4, 0, 0, False, [False, True]))
     # the points read 4 taps each of the source, not the whole frame
-    row("hat_sample_dgrid",
-        cuda_ms(lambda: khs.hat_sample_dgrid(src, grid, cot, *g_geo)),
+    row("hat_sample_dgrid", k_ms,
         cuda_ms(lambda: khs.hat_sample_dgrid_plain(src, grid, cot, *g_geo)),
-        cuda_ms(lambda: backward(cot32, src32, g4, 0, 0, False,
-                                 [False, True])),
-        16.0 * cot.numel(),
-        min(nbytes(src), 4 * nbytes(cot)) + nbytes(grid, cot, dgrid), "f32")
+        l_ms, 16.0 * cot.numel(),
+        min(nbytes(src), 4 * nbytes(cot)) + nbytes(grid, cot, dgrid), "f32",
+        extra=extra)
     del cases, src, src32, dsrc
 
     # K8 at the probe's shape.  Library: one cuBLAS call doing the same
@@ -1136,11 +1189,11 @@ def main() -> int:
 
     # the plain path's profile measures what the plain K2/K7 versions
     # cost inside the step, where dsrc's cotangent is zero off the lip box
-    dev_k = profile_steps(lambda: step(state, tbatch, draws),
-                          f"train step bf16 B={TRAIN_B}", t_train[True])
-    dev_p = profile_steps(lambda: plain_step(state, tbatch, draws),
-                          f"plain-path train step bf16 B={TRAIN_B}",
-                          t_train[False])
+    dev_k, _ = profile_steps(lambda: step(state, tbatch, draws),
+                             f"train step bf16 B={TRAIN_B}", t_train[True])
+    dev_p, _ = profile_steps(lambda: plain_step(state, tbatch, draws),
+                             f"plain-path train step bf16 B={TRAIN_B}",
+                             t_train[False])
     log(f"# profile device time per step, plain path minus kernel path: "
         f"{dev_p - dev_k:.3f} ms")
 
@@ -1168,8 +1221,11 @@ def main() -> int:
                 f"{bsz * 1000 / sms:.1f} frames/s ({ms / sms:.2f}x the "
                 f"Renderer) on {card}")
         if bsz == 8:
-            profile_steps(lambda: renderer(bb, geo["lip_x"], geo["lip_y"]),
-                          "Renderer bf16 batch 8", ms, steps=3)
+            dev_ms, n_launch = profile_steps(
+                lambda: renderer(bb, geo["lip_x"], geo["lip_y"]),
+                "Renderer bf16 batch 8", ms, steps=3)
+            log(f"# Renderer bf16 batch 8: {n_launch} kernel launches and "
+                f"{dev_ms:.2f} ms of device time a batch")
             profile_steps(lambda: static(bb["audio"], bb["index"]),
                           "static scene bf16 batch 8", sms, steps=3)
         del bb

@@ -10,252 +10,287 @@
 // tile from them, and so does each block here: the work is
 // 2 * M * K * N * G * T operations, nothing is reused across t.
 //
-// One design for both types, the port's conv mainloop (csrc/ptx.cuh), so
-// that the int8 / bf16 ratio measures the instruction and not the tuning:
-// - Tiles: a block owns a 128 x 256 output tile of one program; eight
-//   warps, 2 (m) x 4 (n), each a 64 x 64 warp tile (four m16 x eight n8
-//   fragments, 128 float32 or int32 accumulators a thread).  Blocks are
-//   persistent, one per SM, and walk the tiles blockIdx.x, + gridDim.x, ...
-// - K loop: over G * K in chunks of 128 bytes of k (64 bf16, 128 int8),
-//   two chunks a stage of a two-stage ring: one barrier per eight 32-byte
-//   k steps (one per four, from a four-stage ring of single chunks, ran
-//   at 0.75-0.8x the rate; PERF.md).  A chunk holds the lhs chunk
-//   [128 m][128 B] and the rhs chunk [256 rows][128 B] (16 + 32 KB), the
-//   16-byte units of row r stored at unit u ^ (r % 8), so ldmatrix of
-//   eight rows is conflict-free.  The next stage's 16-byte cp.async.cg
-//   copies go out in four parts between the first four k steps' MMAs; the
-//   ring runs on across tiles, so the next tile's loads overlap an
-//   epilogue.
-// - Warp loop, software-pipelined by hand (the PTX helpers are asm
-//   volatile, so the compiler keeps their written order): the B fragments
-//   of the next n8 pair load before this pair's MMAs, A fragment f of the
-//   next k step right after its last MMA of this step.
-// - bf16: the rhs chunk is four [64 k][64 n] slabs, one per warp column;
-//   A by ldmatrix, B by ldmatrix.trans (s2l::mma_tile's addressing),
-//   mma.sync m16n8k16.
-// - int8: mma.sync m16n8k32 takes 8-bit B only as .col (k-contiguous), and
-//   ldmatrix transposes only 16-bit elements.  So a first launch re-lays
-//   rhs [G, K, N] as [G, N, K] (3.1 MB read and written at the probe's
-//   shape, inside the call: in the conv this probe models rhs is the
-//   activation side and changes every call).  The chunk is then
-//   [256 n][128 k] and both operands load by plain ldmatrix.
-// - Epilogue: lanes 2i and 2i + 1 swap half their accumulators, so each
-//   holds four consecutive columns of one row, then one 16-byte streaming
-//   store per fragment (the output, 67 MB at the probe's shape, should
-//   not push the operands out of L2).
-// What bounds it: both types take the same time per ring stage (int8 runs
-// at ~2x bf16's rate, PERF.md), so the limit is the instruction stream of
-// eight warps per SM (ldmatrix, mma.sync, the copies, the barrier), not
-// the tensor cores' type; operands come from L2 at ~85 (bf16) / ~170
-// (int8) operations a byte per block.
-// Next step: wgmma with a TMA ring (ROADMAP B4), for which this kernel's
-// rate is the mma.sync yardstick.
+// One design for both types, Hopper's: a TMA + mbarrier ring feeding wgmma.
+// - Tiles: a block owns a 128 x 256 output tile of one program.  Blocks
+//   are persistent, one per SM, and walk the tiles blockIdx.x, +
+//   gridDim.x, ...; the ring runs on across tiles, so the loads of a
+//   tile's first chunks overlap the previous tile's epilogue.
+// - Roles (one if / else on the warpgroup, never rejoined, so setmaxnreg
+//   holds): warpgroup 2 is the producer, one thread of it issuing the TMA
+//   loads, at 56 registers; warpgroups 0 and 1 are the consumers, each a
+//   64 x 256 half of the tile, at 224 registers: 128 float32 or int32
+//   accumulators a thread.  The block starts at 168 registers a thread
+//   (384 threads); the producer's 128 x 112 registers given back are what
+//   the consumers take (a block of 288 threads starts with too few, and
+//   its consumers wait for registers that never come).
+// - K loop: over G * K in chunks of 128 bytes of k (64 bf16, 128 int8), one
+//   chunk a stage of a four-stage ring (48 KB: lhs [128 m][128 B] and rhs
+//   32 KB).  768 is a multiple of both chunk depths, so a chunk never
+//   straddles two g: chunk c reads lhs at k (c % (K / kc)) * kc and rhs[c /
+//   (K / kc)].  TMA writes every box with the 128-byte swizzle (16-byte
+//   unit u of row r at u ^ (r % 8)), and the wgmma descriptors read it
+//   with the same swizzle.  A full barrier per stage counts the TMA bytes;
+//   an empty barrier per stage counts the eight consumer warps' releases.
+// - Consumers: per chunk four wgmma (m64n256k16 bf16, m64n256k32 s8), 32
+//   bytes of k each, committed as one group; the group of the chunk before
+//   is waited for (one group stays in flight) and its stage released.
+// - bf16: rhs [G, K, N] is N-contiguous, which bf16 wgmma takes as an
+//   MN-major B (the transpose bit): four TMA boxes of [64 k][64 n] per
+//   chunk, 8 KB apart (the descriptor's leading offset), 8-row k groups
+//   1 KB apart (its stride offset).
+// - int8: s8 wgmma takes only a K-major B, so a first launch re-lays rhs
+//   [G, K, N] as [G, N, K] (3.1 MB read and written at the probe's shape,
+//   inside the call: in the conv this probe models rhs is the activation
+//   side and changes every call); one TMA box of [256 n][128 k] a chunk.
+// - Epilogue: straight from the accumulators, two 8-byte streaming stores
+//   per n8 column block (rows r and r + 8; a warp's stores fill whole
+//   32-byte sectors).  Swapping halves between lanes for 16-byte stores
+//   held a second set of values live beside the accumulators and spilled.
+//   The output, 67 MB at the probe's shape, should not push the operands
+//   out of L2.
+// What bounds it: the tensor cores (0.21 ms bf16, 0.10 ms int8 at the
+// probe's shape); the operands come from L2, 48 KB a chunk for 4.2 M bf16
+// or 8.4 M int8 operations, ~85 / ~170 operations a byte per SM.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
-#include "ptx.cuh"
-
 namespace {
 
-constexpr int kWarps = 8, kThreads = 32 * kWarps;
-constexpr int kFrags = s2l::kTileFrags;    // m16 fragments per warp
-constexpr int kBm = 128, kBn = 256;        // block tile
-constexpr int kRow = s2l::kTileWRow;       // 128-byte shared rows: one chunk of k
-constexpr int kSub = 2;                    // chunks per ring stage
-constexpr int kStages = 2;
-constexpr int kSteps = 4 * kSub;           // 32-byte k steps per stage
-constexpr int kParts = 4;                  // parts a stage's copies go out in
-constexpr int kABytes = kBm * kRow;        // lhs chunk
-constexpr int kBBytes = kBn * kRow;        // rhs chunk: 4 x [64 k][64 n] bf16 or [256 n][128 k] s8
-constexpr int kChunkBytes = kABytes + kBBytes;
-constexpr int kStageBytes = kSub * kChunkBytes;
-constexpr int kBytes = kStages * kStageBytes;
-static_assert(kWarps * kFrags * 16 * 64 == kBm * kBn, "the warp tiles cover the block tile");
+constexpr int kConsumers = 2;                    // warpgroups on the MMAs
+constexpr int kThreads = 128 * (kConsumers + 1); // + the producer warpgroup
+constexpr int kBm = 128, kBn = 256;              // block tile
+constexpr int kRow = 128;                        // bytes of k a chunk
+constexpr int kStages = 4;
+constexpr int kABytes = kBm * kRow;              // lhs chunk, 16 KB
+constexpr int kBBytes = kBn * kRow;              // rhs chunk, 32 KB
+constexpr int kStageBytes = kABytes + kBBytes;
+constexpr int kRingBytes = kStages * kStageBytes;
+// the ring, 1 KB of slack to align it to the swizzle's 1 KB pattern, and
+// the full and empty barriers
+constexpr int kBytes = kRingBytes + 1024 + 2 * kStages * 8;
 static_assert(kBytes <= 232448, "shared memory");
-static_assert(kStages == 2 && kParts <= kSteps && kParts % kSub == 0, "one stage in flight");
+static_assert(kConsumers * 64 == kBm, "a consumer warpgroup per 64 rows");
 
-// byte offset of 16-byte unit u of shared row r
-__device__ __forceinline__ uint32_t sw(int r, int u) { return r * kRow + ((u ^ (r & 7)) << 4); }
+// ---- PTX: mbarriers, TMA, wgmma ------------------------------------------
 
-struct ProbeArgs {
-  const unsigned char* lhs;  // [M, K]
-  const unsigned char* rhs;  // bf16: [G, K, N]; int8: re-laid [G, N, K]
-  void* out;                 // [T, M, N] float32 / int32
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+// until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// a 2-D box at (c0 innermost, c1) of the tensor map into shared memory at
+// dst, its bytes counted on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand at addr:
+// leading and stride byte offsets (see the rhs note above), swizzle mode 1
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lead, uint32_t stride) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lead >> 4) << 16) |
+         ((uint64_t)(stride >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous MMAs (empty asm that reads and writes the register)
+__device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void pin(int& r) { asm volatile("" : "+r"(r)::"memory"); }
+
+#define S2L_REGS128                                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "  \
+  "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "  \
+  "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "  \
+  "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "  \
+  "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "    \
+  "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, "   \
+  "%123, %124, %125, %126, %127}"
+#define S2L_D4(C, i) C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3])
+#define S2L_D16(C, i) S2L_D4(C, i), S2L_D4(C, i + 4), S2L_D4(C, i + 8), S2L_D4(C, i + 12)
+#define S2L_D128(C)                                                                          \
+  S2L_D16(C, 0), S2L_D16(C, 16), S2L_D16(C, 32), S2L_D16(C, 48), S2L_D16(C, 64),            \
+      S2L_D16(C, 80), S2L_D16(C, 96), S2L_D16(C, 112)
+
+// d (+)= A . B over 64 rows x 256 columns x 32 bytes of k; scale_d 0 starts
+// the sums afresh.  bf16: A K-major, B MN-major (transpose bit set)
+__device__ __forceinline__ void wgmma(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " S2L_REGS128
+      ", %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : S2L_D128("+f")
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+// s8: both operands K-major
+__device__ __forceinline__ void wgmma(int (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " S2L_REGS128
+      ", %128, %129, p;\n}\n"
+      : S2L_D128("+r")
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  __stcs(reinterpret_cast<float2*>(p), make_float2(x, y));
+}
+__device__ __forceinline__ void store2(int* p, int x, int y) {
+  __stcs(reinterpret_cast<int2*>(p), make_int2(x, y));
+}
+
+struct Shape {
   int m, k, n, g, t;
 };
 
-__device__ __forceinline__ void store4(float* p, float x, float y, float z, float w) {
-  __stcs(reinterpret_cast<float4*>(p), make_float4(x, y, z, w));
-}
-__device__ __forceinline__ void store4(int* p, int x, int y, int z, int w) {
-  __stcs(reinterpret_cast<int4*>(p), make_int4(x, y, z, w));
-}
-
-// B fragments: bf16 B is stored [k][n] and loads transposed, int8 B is
-// stored [n][k] and loads as it is
-template <bool kS8>
-__device__ __forceinline__ void ld_b(uint32_t (&r)[4], uint32_t addr) {
-  if constexpr (kS8)
-    s2l::ldsm_x4(r, addr);
-  else
-    s2l::ldsm_x4_trans(r, addr);
-}
-__device__ __forceinline__ void mma_step(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  s2l::mma_bf16_16816(c, a, b0, b1);
-}
-__device__ __forceinline__ void mma_step(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  s2l::mma_s8_16832(c, a, b0, b1);
-}
-
-template <bool kS8>
-__global__ void __launch_bounds__(kThreads, 1) dot_probe_kernel(ProbeArgs a) {
-  using Acc = std::conditional_t<kS8, int, float>;
-  constexpr int kElt = kS8 ? 1 : 2;  // bytes of an element
-  constexpr int kKc = kRow / kElt;   // k per chunk
-  extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t ring_s = s2l::smem_addr(smem);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp % 2, wn = warp / 2;
-  const int ns = a.g * (a.k / (kSub * kKc));  // ring stages per tile
+// tile q: column tiles fastest, then row tiles, then programs
+__device__ __forceinline__ void tile_at(const Shape& a, int q, int& t, int& m0, int& n0) {
   const int tiles_n = a.n / kBn, tiles_m = a.m / kBm;
-  const int tiles = tiles_n * tiles_m * a.t;
-  // tiles blockIdx.x, + gridDim.x, ... (the launch keeps gridDim.x <= tiles)
-  const int items = ((tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1) * ns;  // stage fastest
+  n0 = (q % tiles_n) * kBn;
+  q /= tiles_n;
+  m0 = (q % tiles_m) * kBm;
+  t = q / tiles_m;
+}
 
-  // tile q: column tiles fastest, then row tiles, then programs
-  auto tile_at = [&](int q, int& t, int& m0, int& n0) {
-    n0 = (q % tiles_n) * kBn;
-    q /= tiles_n;
-    m0 = (q % tiles_m) * kBm;
-    t = q / tiles_m;
-  };
+template <bool kS8>
+__global__ void __launch_bounds__(kThreads, 1)
+    dot_probe_kernel(const __grid_constant__ CUtensorMap lhs_map,
+                     const __grid_constant__ CUtensorMap rhs_map, void* out, const Shape a) {
+  using Acc = std::conditional_t<kS8, int, float>;
+  constexpr int kKc = kS8 ? kRow : kRow / 2;  // k per chunk
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  const uint32_t full = ring + kRingBytes, empty = full + 8 * kStages;
+  const int tiles = (a.n / kBn) * (a.m / kBm) * a.t;
+  const int chunks = a.g * (a.k / kKc);  // chunks a tile
 
-  // load cursor: the next stage to fill holds chunks k0, k0 + kKc, ... of
-  // lhs[m0.., :] and rhs[g][:, n0..] (the operands do not depend on t).
-  // A stage fills in kParts parts, each thread's 16-byte copies split
-  // evenly; the last part moves the cursor on.
-  int lq = blockIdx.x, lg = 0, lk = 0, lt, lm, ln;
-  tile_at(lq, lt, lm, ln);
-  auto load_part = [&](uint32_t st, int p) {
-    const int c = p / (kParts / kSub), h = p % (kParts / kSub);
-    constexpr int kA = kBm * 8 / kThreads / (kParts / kSub);  // copies a part
-    constexpr int kB = kBn * 8 / kThreads / (kParts / kSub);
-    const uint32_t sa = st + c * kChunkBytes, sb = sa + kABytes;
-    const int k0 = lk + c * kKc;
-#pragma unroll
-    for (int j = 0; j < kA; ++j) {
-      const int i = threadIdx.x + (h * kA + j) * kThreads, r = i / 8, u = i % 8;
-      s2l::cp_async16(sa + sw(r, u), a.lhs + ((size_t)(lm + r) * a.k + k0) * kElt + 16 * u, true);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * kConsumers);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup, uniform across each warp (setmaxnreg is .sync.aligned)
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wg == kConsumers) {
+    // ---- producer: one thread keeps the ring full --------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;");
+    if (threadIdx.x == 128 * kConsumers) {
+      int it = 0;
+      for (int q = blockIdx.x; q < tiles; q += gridDim.x) {
+        int t, m0, n0;
+        tile_at(a, q, t, m0, n0);
+        // chunk c reads lhs at k0 and rhs[gi] at k0, k0 wrapping at K
+        for (int c = 0, gi = 0, k0 = 0; c < chunks; ++c, ++it) {
+          const int s = it % kStages;
+          const uint32_t st = ring + s * kStageBytes, bar = full + 8 * s;
+          mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);
+          mbar_expect_tx(bar, kStageBytes);
+          tma_load(st, &lhs_map, k0, m0, bar);
+          if constexpr (kS8) {
+            tma_load(st + kABytes, &rhs_map, k0, gi * a.n + n0, bar);
+          } else {
 #pragma unroll
-    for (int j = 0; j < kB; ++j) {
-      const int i = threadIdx.x + (h * kB + j) * kThreads;
-      if constexpr (kS8) {
-        const int r = i / 8, u = i % 8;  // row r = column n0 + r
-        s2l::cp_async16(sb + sw(r, u), a.rhs + ((size_t)lg * a.n + ln + r) * a.k + k0 + 16 * u,
-                        true);
-      } else {
-        const int kr = i / 32, s = (i / 8) % 4, u = i % 8;  // slab s, k row kr
-        s2l::cp_async16(sb + sw(64 * s + kr, u),
-                        a.rhs + (((size_t)lg * a.k + k0 + kr) * a.n + ln + 64 * s + 8 * u) * 2,
-                        true);
-      }
-    }
-    if (p == kParts - 1) {
-      lk += kSub * kKc;
-      if (lk == a.k) {
-        lk = 0;
-        if (++lg == a.g) {
-          lg = 0;
-          lq += gridDim.x;
-          tile_at(lq, lt, lm, ln);
+            for (int j = 0; j < kBn / 64; ++j)
+              tma_load(st + kABytes + j * 8192, &rhs_map, n0 + 64 * j, gi * a.k + k0, bar);
+          }
+          if ((k0 += kKc) == a.k) {
+            k0 = 0;
+            ++gi;
+          }
         }
       }
     }
-  };
-
-  // shared addresses of step s (chunk s / 4, k step s % 4) of a stage at
-  // st: A fragment f, and the B fragments of n8 pair j, ldmatrix matrix
-  // lane / 8 (bf16: k rows (lane / 8) % 2 * 8.., ldmatrix.trans, as
-  // s2l::mma_tile; int8: n rows lane / 16 * 8.., k unit (lane / 8) % 2)
-  auto a_addr = [&](uint32_t st, int s, int f) {
-    return st + (s / 4) * kChunkBytes + sw(64 * wm + 16 * f + lane % 16, 2 * (s % 4) + lane / 16);
-  };
-  auto b_addr = [&](uint32_t st, int s, int j) -> uint32_t {
-    const uint32_t sb = st + (s / 4) * kChunkBytes + kABytes;
-    if constexpr (kS8)
-      return sb + (64 * wn + 16 * j + (lane & 7) + ((lane >> 4) << 3)) * kRow +
-             (((2 * (s % 4) + ((lane >> 3) & 1)) ^ (lane & 7)) << 4);
-    else
-      return sb + (64 * wn + 16 * (s % 4) + (lane & 15)) * kRow +
-             (((2 * j) ^ ((lane >> 4) ^ (lane & 7))) << 4);
-  };
-
-  Acc acc[kFrags][8][4];
-  s2l::zero_tile(acc);
+  } else {
+    // ---- consumers: rows 64 wg .. of the tile ------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;");
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    Acc d[128];  // each tile's first MMA starts the sums (scale_d 0)
+    int it = 0;
+    for (int q = blockIdx.x; q < tiles; q += gridDim.x) {
+      int prev = 0;
+      for (int c = 0; c < chunks; ++c, ++it) {
+        const int s = it % kStages;
+        const uint32_t st = ring + s * kStageBytes;
+        mbar_wait(full + 8 * s, (it / kStages) & 1);
+        const uint32_t sa = st + wg * 64 * kRow, sb = st + kABytes;
 #pragma unroll
-  for (int p = 0; p < kParts; ++p) load_part(ring_s, p);
-  s2l::cp_async_commit();
-  for (int it = 0; it < items; ++it) {
-    s2l::cp_async_wait<0>();
-    __syncthreads();  // stage it landed; every warp is done with stage it - 1
-    const uint32_t st = ring_s + (it % kStages) * kStageBytes;
-    const uint32_t nxt = ring_s + ((it + 1) % kStages) * kStageBytes;
-    const bool more = it + 1 < items;
-    // software pipeline over the stage's kSteps steps: the B fragments of
-    // the next n8 pair load before this pair's MMAs, A fragment f of the
-    // next step right after its last MMA of this step; the next stage's
-    // copies go out in parts over the first kParts steps
-    uint32_t af[kFrags][4], bfr[2][4];
+        for (int i = 0; i < 128; ++i) pin(d[i]);
+        wgmma_fence();  // the accumulators' registers are settled
 #pragma unroll
-    for (int f = 0; f < kFrags; ++f) s2l::ldsm_x4(af[f], a_addr(st, 0, f));
-    ld_b<kS8>(bfr[0], b_addr(st, 0, 0));
-#pragma unroll
-    for (int s = 0; s < kSteps; ++s) {
-      if (s < kParts && more) load_part(nxt, s);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int q = (s * 4 + j) & 1;
-        if (j < 3)
-          ld_b<kS8>(bfr[q ^ 1], b_addr(st, s, j + 1));
-        else if (s + 1 < kSteps)
-          ld_b<kS8>(bfr[q ^ 1], b_addr(st, s + 1, 0));
-#pragma unroll
-        for (int f = 0; f < kFrags; ++f) {
-          mma_step(acc[f][2 * j], af[f], bfr[q][0], bfr[q][1]);
-          mma_step(acc[f][2 * j + 1], af[f], bfr[q][2], bfr[q][3]);
-          if (j == 3 && s + 1 < kSteps) s2l::ldsm_x4(af[f], a_addr(st, s + 1, f));
+        for (int kk = 0; kk < kRow / 32; ++kk) {
+          // A: 8-row groups 1 KB apart, 32 bytes of k further per step.
+          // B: bf16 16 k rows (2 KB) further per step, the four 64-column
+          // boxes 8 KB apart; s8 as A, 256 rows
+          const uint64_t da = sw128_desc(sa + 32 * kk, 16, 1024);
+          const uint64_t db = kS8 ? sw128_desc(sb + 32 * kk, 16, 1024)
+                                  : sw128_desc(sb + 2048 * kk, 8192, 1024);
+          wgmma(d, da, db, (c | kk) != 0);
         }
+        wgmma_commit();
+        // the chunk before is done: release its stage (no code but the
+        // MMAs touches the accumulators until the wait for all below)
+        wgmma_wait<1>();
+        if (c > 0 && lane == 0) mbar_arrive(empty + 8 * prev);
+        prev = s;
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 128; ++i) pin(d[i]);
+      if (lane == 0) mbar_arrive(empty + 8 * prev);
+
+      // epilogue: d[4j..4j+1] are row lane / 4, columns 8j + 2 (lane % 4)
+      // and one more; d[4j+2..4j+3] the same columns of row lane / 4 + 8
+      int t, m0, n0;
+      tile_at(a, q, t, m0, n0);
+      Acc* const o = static_cast<Acc*>(out) +
+                     ((size_t)t * a.m + m0 + 64 * wg + 16 * warp + lane / 4) * a.n + n0 +
+                     2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        store2(o + 8 * j, d[4 * j], d[4 * j + 1]);
+        store2(o + (size_t)8 * a.n + 8 * j, d[4 * j + 2], d[4 * j + 3]);
       }
     }
-    s2l::cp_async_commit();
-    if (it % ns != ns - 1) continue;
-
-    // epilogue: an even lane gets its partner's columns of row lane / 4,
-    // an odd lane its partner's of row lane / 4 + 8
-    int t, m0, n0;
-    tile_at(blockIdx.x + (it / ns) * gridDim.x, t, m0, n0);
-    const bool odd = lane & 1;
-    Acc* const out = static_cast<Acc*>(a.out) + ((size_t)t * a.m + m0 + 64 * wm) * a.n + n0 + 64 * wn;
-    const int row = lane / 4 + (odd ? 8 : 0), col = 2 * (lane % 4) - (odd ? 2 : 0);
-#pragma unroll
-    for (int f = 0; f < kFrags; ++f)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const Acc s0 = odd ? acc[f][j][0] : acc[f][j][2];
-        const Acc s1 = odd ? acc[f][j][1] : acc[f][j][3];
-        const Acc r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
-        const Acc r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
-        Acc* const p = out + (size_t)(16 * f + row) * a.n + 8 * j + col;
-        if (odd)
-          store4(p, r0, r1, acc[f][j][2], acc[f][j][3]);
-        else
-          store4(p, acc[f][j][0], acc[f][j][1], r0, r1);
-      }
-    s2l::zero_tile(acc);
   }
 }
 
@@ -292,40 +327,89 @@ const void* probe_fn() {
   return reinterpret_cast<const void*>(dot_probe_kernel<kS8>);
 }
 
+// ---- host: tensor maps and launches ----------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of the CUDA low-level API, looked up through the
+// runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 2-D map over rows of `inner` elements (`rows` of them, `pitch` bytes
+// apart), boxes of box_inner x box_rows, 128-byte swizzle
+int make_map(CUtensorMap* map, const void* base, bool s8, uint64_t inner, uint64_t rows,
+             uint64_t pitch, uint32_t box_inner, uint32_t box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorInitializationError;
+  const cuuint64_t dims[2] = {inner, rows};
+  const cuuint64_t strides[1] = {pitch};
+  const cuuint32_t box[2] = {box_inner, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(
+      map, s8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+      const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 // M a multiple of 128, N of 256, K of 256; every count fits an int
 int check_shape(const void* lhs, const void* rhs, const void* out, int m, int k, int n, int g,
                 int t) {
-  if (m <= 0 || k <= 0 || n <= 0 || g <= 0 || t <= 0 || m % kBm || n % kBn || k % (kSub * kRow) ||
+  if (m <= 0 || k <= 0 || n <= 0 || g <= 0 || t <= 0 || m % kBm || n % kBn || k % 256 ||
       !aligned16(lhs) || !aligned16(rhs) || !aligned16(out))
     return (int)cudaErrorInvalidValue;
   const long long tiles = (long long)(m / kBm) * (n / kBn) * t;
-  if (tiles * g * (k / 64) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (tiles * g * (k / 64) > 0x7fffffffLL || (long long)g * k > 0x7fffffffLL ||
+      (long long)g * n > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   return 0;
 }
 
+// rhs: bf16 [G, K, N]; int8 the re-laid [G, N, K]
 template <bool kS8>
 int launch(const void* lhs, const void* rhs, void* out, int m, int k, int n, int g, int t,
            cudaStream_t stream) {
-  cudaError_t err =
+  CUtensorMap lhs_map, rhs_map;
+  int err = kS8 ? make_map(&lhs_map, lhs, true, k, m, k, kRow, kBm)
+                : make_map(&lhs_map, lhs, false, k, m, 2ull * k, kRow / 2, kBm);
+  if (err) return err;
+  err = kS8 ? make_map(&rhs_map, rhs, true, k, (uint64_t)g * n, k, kRow, kBn)
+            : make_map(&rhs_map, rhs, false, n, (uint64_t)g * k, 2ull * n, 64, kRow / 2);
+  if (err) return err;
+  cudaError_t e =
       cudaFuncSetAttribute(probe_fn<kS8>(), cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
-  if (err != cudaSuccess) return (int)err;
+  if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
   const int tiles = (m / kBm) * (n / kBn) * t;
-  ProbeArgs a;
-  a.lhs = static_cast<const unsigned char*>(lhs);
-  a.rhs = static_cast<const unsigned char*>(rhs);
-  a.out = out;
-  a.m = m;
-  a.k = k;
-  a.n = n;
-  a.g = g;
-  a.t = t;
-  dot_probe_kernel<kS8><<<tiles < sms ? tiles : sms, kThreads, kBytes, stream>>>(a);
+  const Shape a{m, k, n, g, t};
+  dot_probe_kernel<kS8><<<tiles < sms ? tiles : sms, kThreads, kBytes, stream>>>(lhs_map, rhs_map,
+                                                                                 out, a);
   return (int)cudaGetLastError();
 }
 

@@ -128,15 +128,15 @@ def _sample_box_region(merged_canonical, grid_w, box, h: int, w: int,
     if x0b - 1 >= 0 and y0b - 1 >= 0 and x1b + 1 <= w and y1b + 1 <= h:
         src = merged_canonical[:, y0b - 1:y1b + 1, x0b - 1:x1b + 1]
         bb, wh, ww, _ = grid_w.shape
-        flat = grid_w.reshape(bb, wh * ww, 2)
         if pallas_gather:
-            out = hat_sample(src, flat, y0b - 1, x0b - 1, h, w,
-                             kernels=use_kernels)
+            out = hat_sample(src, grid_w.reshape(bb, wh * ww, 2), y0b - 1,
+                             x0b - 1, h, w, kernels=use_kernels)
         elif use_kernels:
-            out = window_sample(src.contiguous(), flat.contiguous(),
-                                y0b - 1, x0b - 1, h, w)
+            # K2 reads the crop and the window in place: no copy of either
+            out = window_sample(src, grid_w, y0b - 1, x0b - 1, h, w)
         else:
-            out = grid_sample_onehot(src, flat, y0b - 1, x0b - 1, h, w)
+            out = grid_sample_onehot(src, grid_w.reshape(bb, wh * ww, 2),
+                                     y0b - 1, x0b - 1, h, w)
         return out.reshape(bb, wh, ww, -1)
     return grid_sample(merged_canonical, grid_w)
 

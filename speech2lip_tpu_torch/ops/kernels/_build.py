@@ -26,6 +26,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
+_B = ctypes.c_char_p  # a bytes block of packed arguments
 # C entry points: name -> argtypes (every pointer and the stream as void*,
 # out-parameters as int*)
 SIGNATURES = {
@@ -33,11 +34,10 @@ SIGNATURES = {
     #  out, n, frames, depth, skip_layer, stream)
     "fused_mlp_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fused_mlp_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # (src, grid, out, b, hs, ws, c, p, y_off, x_off, height, width, stream)
-    "window_sample_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _P],
-    "window_sample_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                          _P],
+    # (args: the packed int64 words of window_sample.cu's Args, their
+    #  count, stream)
+    "window_sample_bf16": [_B, _I, _P],
+    "window_sample_f32": [_B, _I, _P],
     # (x, c0, lo, c1, hl, wl, w, scale, bias, out, pool_out,
     #  b, h, wd, cout, stream)
     "conv3x3_bn_relu_bf16": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P,
@@ -177,6 +177,16 @@ def func_attrs(name: str, *args) -> dict:
                     (v.value for v in vals)))
 
 
+_raw_stream = None
+
+
 def stream_ptr(t) -> int:
-    import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of PyTorch's current stream on t's device (the
+    capturing stream inside a CUDA graph capture), by the getter of a CUDA
+    build of torch: it makes no Stream object, a fraction of the cost of
+    ``torch.cuda.current_stream(...).cuda_stream``."""
+    global _raw_stream
+    if _raw_stream is None:
+        import torch
+        _raw_stream = torch._C._cuda_getCurrentRawStream
+    return _raw_stream(t.get_device())

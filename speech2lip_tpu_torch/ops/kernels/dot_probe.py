@@ -5,9 +5,10 @@ Replaces the Pallas kernel of ``tools/bench_int8_dot.py`` (``make``, the
 out[t] = sum_g lhs @ rhs[g] for lhs [M, K] and rhs [G, K, N], in bfloat16
 with float32 sums or in int8 with int32 sums.  It measures the tensor
 cores' rate at the HCW conv's dot shapes in both types.  On the H100 both
-run the port's conv mainloop (a cp.async ring, ldmatrix, mma.sync); int8
-first re-lays rhs k-contiguous, since mma.sync takes 8-bit B only that
-way.  ``dot_probe_attrs`` reports the kernel's registers, local memory and
+run Hopper's mainloop: a TMA + mbarrier ring filled by one producer warp,
+wgmma on two consumer warpgroups, persistent blocks; int8 first re-lays
+rhs k-contiguous, since s8 wgmma takes B only that way.
+``dot_probe_attrs`` reports the kernel's registers, local memory and
 shared memory.
 """
 

@@ -158,8 +158,8 @@ class _HatSample(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, src, grid, y_off, x_off, height, width, kernels):
-        src = src.contiguous()
-        grid = grid.contiguous()
+        # K2 reads src and grid in place; the backward kernels take
+        # contiguous inputs, copied there only when their cotangent is due
         ctx.save_for_backward(src, grid)
         ctx.geom = (y_off, x_off, height, width)
         ctx.kernels = kernels
@@ -170,6 +170,7 @@ class _HatSample(torch.autograd.Function):
     def backward(ctx, g):
         src, grid = ctx.saved_tensors
         y_off, x_off, height, width = ctx.geom
+        grid = grid.contiguous()
         g = g.contiguous()
         dsrc = dgrid = None
         if ctx.needs_input_grad[0]:
@@ -178,7 +179,7 @@ class _HatSample(torch.autograd.Function):
                       height, width)
         if ctx.needs_input_grad[1]:
             fn = hat_sample_dgrid if ctx.kernels else hat_sample_dgrid_plain
-            dgrid = fn(src, grid, g, y_off, x_off, height,
+            dgrid = fn(src.contiguous(), grid, g, y_off, x_off, height,
                        width).to(grid.dtype)
         return dsrc, dgrid, None, None, None, None, None
 

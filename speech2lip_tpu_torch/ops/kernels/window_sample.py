@@ -4,11 +4,17 @@ Replaces ``speech2lip_tpu/ops/pallas/window_sample.py:window_sample``: a
 bilinear sample of a source crop at P points whose grid is normalised to
 the full image, with hat-function weights, so a footprint outside the
 crop reads zeros.  The TPU kernel's one-hot matmuls worked around slow
-gathers; on the H100 one thread per point gathers its four taps, and the
-kernel is bound by the latency of those gathers.
+gathers; on the H100 a thread gathers the four taps of four consecutive
+points, and the kernel is bound by the latency of those gathers and by
+its launch.  The wrapper reads a crop view of a larger frame and a window
+view of a larger grid in place, so the composite copies neither, and
+passes its arguments as one packed block: the host's dispatch is most of
+a call at May geometry.
 """
 
 from __future__ import annotations
+
+import struct
 
 import torch
 
@@ -16,14 +22,22 @@ from speech2lip_tpu_torch.ops.kernels import _build
 
 launches = 0  # kernel launches by ``window_sample`` in this process
 
+# the C entry's one block of arguments (``Args`` in csrc/window_sample.cu):
+# src, grid, out pointers; src batch / row strides; grid batch / row /
+# point strides; b, hs, ws, c, p, gw; y_off, x_off, height, width
+_N_ARGS = 18
+_ARGS = struct.Struct(f"<{_N_ARGS}q")
+
 
 def window_sample_plain(src, grid, y_off: int, x_off: int, height: int,
                         width: int):
     """Zero-outside-the-crop bilinear sample as PyTorch ops.
 
-    src [B, Hs, Ws, C]; grid [B, P, 2].  Returns [B, P, C] in src.dtype."""
+    src [B, Hs, Ws, C]; grid [B, P, 2] or [B, wh, ww, 2], views of any
+    strides.  Returns [B, P, C] in src.dtype."""
     b, hs, ws, c = src.shape
-    g = grid.float()  # crop-local coordinates, as the kernel rounds them
+    # crop-local coordinates, as the kernel rounds them
+    g = grid.float().reshape(b, -1, 2)
     ix = (g[..., 0] + 1.0) * (width * 0.5) - (0.5 + x_off)
     iy = (g[..., 1] + 1.0) * (height * 0.5) - (0.5 + y_off)
     x0 = torch.floor(ix)
@@ -49,30 +63,56 @@ def window_sample_plain(src, grid, y_off: int, x_off: int, height: int,
 def window_sample(src, grid, y_off: int, x_off: int, height: int,
                   width: int):
     """Bilinear-sample the crop src [B, Hs, Ws, C] = image[y_off:, x_off:]
-    at grid [B, P, 2] ((x, y) in [-1, 1] of the full (height, width)
-    image, align_corners=False).  Returns [B, P, C] in src.dtype."""
-    if src.device.type == "cpu":
-        return window_sample_plain(src, grid, y_off, x_off, height, width)
-    global launches
-    if src.device.type != "cuda":
+    at grid [B, P, 2] or [B, wh, ww, 2] ((x, y) in [-1, 1] of the full
+    (height, width) image, align_corners=False).  Returns [B, P, C] in
+    src.dtype, P = wh * ww for a 4-D grid.
+
+    On the card both are read in place: src may be a view of a larger
+    frame (channel stride 1, pixel stride C, any row and batch stride) and
+    grid a window of a larger grid (the two coordinates adjacent, any
+    point, row and batch stride).  Anything else raises."""
+    # the common case first and each attribute read once: the checks are a
+    # fair share of a call at May geometry
+    if not src.is_cuda:
+        if src.device.type == "cpu":
+            return window_sample_plain(src, grid, y_off, x_off, height, width)
         raise ValueError(f"window_sample: unsupported device {src.device}")
-    if src.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"window_sample: dtype {src.dtype}")
+    global launches
+    dtype = src.dtype
+    if dtype is torch.bfloat16:
+        fn = _build.library().window_sample_bf16
+    elif dtype is torch.float32:
+        fn = _build.library().window_sample_f32
+    else:
+        raise TypeError(f"window_sample: dtype {dtype}")
     b, hs, ws, c = src.shape
-    if (grid.dim() != 3 or grid.shape[0] != b or grid.shape[2] != 2
-            or grid.dtype != torch.float32 or grid.device != src.device):
-        raise ValueError("window_sample: grid must be float32 [B, P, 2] on "
-                         f"{src.device}, got {grid.dtype} {tuple(grid.shape)}")
-    if not (src.is_contiguous() and grid.is_contiguous()):
-        raise ValueError("window_sample: inputs must be contiguous")
-    p = grid.shape[1]
-    out = torch.empty((b, p, c), dtype=src.dtype, device=src.device)
-    lib = _build.library()
-    fn = (lib.window_sample_bf16 if src.dtype == torch.bfloat16
-          else lib.window_sample_f32)
-    err = fn(src.data_ptr(), grid.data_ptr(), out.data_ptr(), b, hs, ws, c,
-             p, int(y_off), int(x_off), int(height), int(width),
-             _build.stream_ptr(src))
+    gshape = grid.shape
+    gs = grid.stride()
+    if len(gshape) == 4:
+        gb, gr, gp, gc = gs
+        gw = gshape[2]
+        p = gshape[1] * gw
+    elif len(gshape) == 3:
+        gb, gp, gc = gs
+        gw = p = gshape[1]
+        gr = p * gp
+    else:
+        gc = 0
+    if (gc != 1 or gshape[0] != b or gshape[-1] != 2
+            or grid.dtype is not torch.float32
+            or grid.get_device() != src.get_device()):
+        raise ValueError("window_sample: grid must be float32 [B, P, 2] or "
+                         f"[B, wh, ww, 2] with coordinate stride 1 on "
+                         f"{src.device}, got {grid.dtype} {tuple(gshape)} "
+                         f"strides {gs} on {grid.device}")
+    sb, sr, sp, sc = src.stride()
+    if sc != 1 or sp != c:
+        raise ValueError("window_sample: src needs channel stride 1 and "
+                         f"pixel stride C, got {src.stride()}")
+    out = src.new_empty((b, p, c))
+    err = fn(_ARGS.pack(src.data_ptr(), grid.data_ptr(), out.data_ptr(),
+                        sb, sr, gb, gr, gp, b, hs, ws, c, p, gw, y_off, x_off,
+                        height, width), _N_ARGS, _build.stream_ptr(src))
     _build.check(err, "window_sample")
     launches += 1
     return out

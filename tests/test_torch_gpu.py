@@ -89,6 +89,111 @@ def test_window_sample_kernel(cuda, dtype):
     assert _rel_err(got, ref) < (1e-5 if dtype == torch.float32 else 1e-2)
 
 
+def _window_views(cuda, dtype, grid_form, b=3):
+    """K2's inputs as the composite passes them: a crop view of a larger
+    frame, and a window view of a larger grid (4-D; "interleaved": of a
+    grid that holds the batch innermost, as one frame's grid broadcast
+    over the batch by numpy does) or a slice of a larger point list (3-D),
+    with points inside, across the edge of and outside the crop.  Returns
+    (src, grid, y_off, x_off, height, width)."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    h, w, y_off, x_off, hs, ws = 200, 220, 60, 70, 54, 70
+    frame = torch.rand(b, h, w, 3, device=cuda, generator=g).to(dtype)
+    src = frame[:, y_off:y_off + hs, x_off:x_off + ws]
+    gx = (x_off - 5 + (ws + 10) * torch.rand(b, 120, 150, device=cuda,
+                                             generator=g)) / w * 2 - 1
+    gy = (y_off - 5 + (hs + 10) * torch.rand(b, 120, 150, device=cuda,
+                                             generator=g)) / h * 2 - 1
+    coord = torch.stack([gx, gy], -1)
+    if grid_form == "interleaved":
+        coord = coord.permute(1, 2, 0, 3).contiguous().permute(2, 0, 1, 3)
+    grid = (coord.reshape(b, -1, 2)[:, 501:9000] if grid_form == "points"
+            else coord[:, 10:90, 20:131])
+    assert not (src.is_contiguous() or grid.is_contiguous())
+    return src, grid, y_off, x_off, h, w
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("grid_form", ["window", "interleaved", "points"])
+def test_window_sample_kernel_on_views(cuda, dtype, grid_form):
+    """K2 reads the crop and the grid in place: against its plain version
+    at the bounds of test_window_sample_kernel, and bit for bit against
+    itself on contiguous copies."""
+    src, grid, *geom = _window_views(cuda, dtype, grid_form)
+    before = kws.launches
+    got = kws.window_sample(src, grid, *geom)
+    torch.cuda.synchronize()
+    assert kws.launches == before + 1
+    assert got.shape == (src.shape[0], grid[0, ..., 0].numel(), 3)
+    ref = kws.window_sample_plain(src, grid, *geom)
+    assert _rel_err(got, ref) < (1e-5 if dtype == torch.float32 else 1e-2)
+    flat = grid.reshape(grid.shape[0], -1, 2).contiguous()
+    assert torch.equal(got, kws.window_sample(src.contiguous(), flat, *geom))
+
+
+@pytest.mark.parametrize("c", [1, 4])
+def test_window_sample_kernel_any_channel_count(cuda, c):
+    """C other than the images' 3 takes the kernel's scalar path, on views
+    too, against the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    frame = torch.rand(2, 60, 70, c, device=cuda, generator=g)
+    src = frame[:, 11:40, 7:52]
+    coord = torch.rand(2, 50, 64, 2, device=cuda, generator=g) * 2 - 1
+    grid = coord[:, 3:30, 5:44]
+    got = kws.window_sample(src, grid, 11, 7, 60, 70)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 27 * 39, c)
+    assert _rel_err(got, kws.window_sample_plain(src, grid, 11, 7, 60,
+                                                 70)) < 1e-5
+
+
+def test_window_sample_raises_on_views_it_cannot_take(cuda):
+    src = torch.rand(2, 20, 30, 3, device=cuda)
+    grid = torch.rand(2, 50, 2, device=cuda) * 2 - 1
+    four = torch.rand(2, 20, 30, 4, device=cuda)
+    planar = torch.rand(2, 3, 20, 30, device=cuda).permute(0, 2, 3, 1)
+    for bad_src in (four[..., :3],   # pixel stride 4, C 3
+                    planar):         # channel stride 600
+        with pytest.raises(ValueError):
+            kws.window_sample(bad_src, grid, 0, 0, 20, 30)
+    for bad_grid in (torch.rand(2, 2, 50, device=cuda).transpose(1, 2),
+                     torch.rand(2, 50, 4, device=cuda)[..., ::2],
+                     grid.cpu(), grid.double(), grid[:1],
+                     torch.rand(2, 50, 3, device=cuda)):
+        with pytest.raises(ValueError):
+            kws.window_sample(src, bad_grid, 0, 0, 20, 30)
+    with pytest.raises(TypeError):
+        kws.window_sample(src.half(), grid, 0, 0, 20, 30)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_window_sample_kernel_in_a_cuda_graph(cuda, dtype):
+    """K2 captured in a CUDA graph launches on the capturing stream: the
+    replay gives the eager output, and again after the inputs change in
+    place.  The launch counter counts at capture."""
+    src, grid, *geom = _window_views(cuda, dtype, "window")
+    eager = kws.window_sample(src, grid, *geom)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kws.window_sample(src, grid, *geom)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = kws.launches
+    with torch.cuda.graph(graph):
+        out = kws.window_sample(src, grid, *geom)
+    assert kws.launches == before + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    src.mul_(0.5)
+    grid.add_(0.01)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert kws.launches == before + 1
+    assert torch.equal(out, kws.window_sample(src, grid, *geom))
+
+
 def _check_fused_block(cuda, dtype, block, size, pool, batch=2, lo_size=None):
     """K3 with the U-Net block's weights on a size x input (an up block's
     low-resolution source at lo_size, by default ((h + 1) // 2, (w + 1) //
@@ -413,10 +518,11 @@ def test_wrappers_raise_on_bad_input(cuda):
 
 
 # (M, K, N, G, T): the probe's shape, then T 1 and 3, G 1 and 8, N one and
-# two 256-column block tiles, M two 128-row tiles, K 512
+# two 256-column block tiles, M two 128-row tiles, K 512, and 274 tiles,
+# which outnumber the 132 SMs by a ragged amount (2 x 132 + 10)
 DOT_SHAPES = [(128, 768, 512, 8, 256), (128, 768, 256, 1, 1),
               (128, 768, 512, 1, 3), (128, 768, 256, 8, 3),
-              (256, 512, 512, 2, 3)]
+              (256, 512, 512, 2, 3), (128, 768, 512, 8, 137)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])

@@ -147,6 +147,66 @@ def test_window_sample_plain_matches_pallas_interpret(interp):
     assert _err(got.numpy()[inside], _np(oh)[inside]) < 1e-5
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grid_form", ["window", "interleaved", "points"])
+def test_window_sample_plain_strided_equals_contiguous(dtype, grid_form):
+    """The plain K2 on a crop view of a larger frame and on a window view of
+    a larger grid (4-D; "interleaved": of a grid that holds the batch
+    innermost, as the synthetic batch's broadcast grid does) or a slice of
+    a larger point list (3-D) gives what it gives on contiguous copies, bit
+    for bit."""
+    rng = np.random.default_rng(3)
+    frame = torch.from_numpy(rng.uniform(0, 1, (2, 60, 70, 3)).astype(
+        np.float32)).to(dtype)
+    src = frame[:, 11:40, 7:52]  # image[11:, 7:] of a 60 x 70 image
+    coord = torch.from_numpy(rng.uniform(-1, 1, (2, 50, 64, 2)).astype(
+        np.float32))
+    if grid_form == "interleaved":
+        coord = coord.permute(1, 2, 0, 3).contiguous().permute(2, 0, 1, 3)
+    grid = (coord.reshape(2, -1, 2)[:, 100:900] if grid_form == "points"
+            else coord[:, 3:30, 5:44])
+    assert not (src.is_contiguous() or grid.is_contiguous())
+    got = kws.window_sample(src, grid, 11, 7, 60, 70)
+    ref = kws.window_sample_plain(src.contiguous(),
+                                  grid.reshape(2, -1, 2).contiguous(), 11, 7,
+                                  60, 70)
+    assert got.shape == (2, grid[0, ..., 0].numel(), 3)
+    assert got.dtype == dtype and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_post_fusion_composite_window_matches_jax(interp, dtype):
+    """The composite's window branch with K2 on (the port reads the crop
+    and the window in place, JAX copies both into its Pallas kernel, run
+    in interpret mode) against JAX, in float32 and bf16."""
+    from speech2lip_tpu.data.synthetic import synthetic_batch
+    from speech2lip_tpu.data.windows import compute_warp_window
+    from speech2lip_tpu_torch.models import talking_face as ttf
+
+    face, lip_h, lip_w, b = 64, 16, 24, 2
+    raw, geo = synthetic_batch(b, face=face, lip_h=lip_h, lip_w=lip_w)
+    box = jtf.expanded_lip_box(lip_h, lip_w, geo["lip_x"], geo["lip_y"])
+    window = compute_warp_window([raw["coord"][i] for i in range(b)], box,
+                                 face, face, margin=4)
+    rng = np.random.default_rng(4)
+    rgb_lip = rng.uniform(0, 1, (b, lip_h, lip_w, 3)).astype(np.float32)
+    ins = [rgb_lip] + [raw[k] for k in ("rgb_face_zero", "rgb_face_ori",
+                                        "mask_lip_canonical")]
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    ref, _, _ = jtf.post_fusion_composite(
+        *[jnp.asarray(x, jdt) for x in ins], jnp.asarray(raw["coord"]),
+        geo["lip_x"], geo["lip_y"], window=window, use_pallas=True)
+    before = kws.launches
+    got, _, _ = ttf.post_fusion_composite(
+        *[torch.from_numpy(x).to(tdt) for x in ins],
+        torch.from_numpy(raw["coord"]), geo["lip_x"], geo["lip_y"],
+        window=window, use_kernels=True)
+    assert kws.launches == before and got.dtype == tdt
+    # float32: the same hat weights, contracted as a matmul in JAX; bf16:
+    # the sample and the blend round at other places (a few bf16 ulps)
+    assert _err(got, ref) < (1e-5 if dtype == "float32" else 1e-2)
+
+
 def _jblock(p, s, x):
     y, _ = junet._double_conv(p, s, x, False)
     return y
