@@ -26,14 +26,16 @@ made from a seed:
   version;
 
 checks that the kernels carried each path (launch counts, set to 0 just
-before a path and read just after) and that the composite hands K2 the
-frame's crop and the coord grid's window as views, with no copy op; and
-times the kernels, a PyTorch library call computing the same function
-where there is one, and the paths with CUDA events.  K2 and K7 get two
-times each, in turns with their library call: the call time (the row's
-ms, the host's dispatch included) and the device time (a CUDA graph of
-100 calls replayed, device_ms).  Needs one CUDA device; without one it
-exits non-zero before printing any result.
+before a path and read just after) and that the composite hands K2, and
+hat_sample K2 and K7, the frame's crop and the coord grid's window as
+views, with no copy op; and times the kernels, a PyTorch library call
+computing the same function where there is one, and the paths with CUDA
+events.  K2 and K7 get two times each, in turns with their library call:
+the call time (the row's ms, the host's dispatch included) and the device
+time (a CUDA graph of 100 calls replayed, device_ms); both K7 rows, on
+the train step's own inputs, also count their device launches a call by
+profile and carry the kernel's local bytes.  Needs one CUDA device; without one it exits non-zero before
+printing any result.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 each kernel's launches on its path, error, times and bound.
@@ -322,8 +324,8 @@ def main() -> int:
     from speech2lip_tpu_torch.ops.kernels import hat_sample as khs
     from speech2lip_tpu_torch.ops.kernels import window_sample as kws
     from speech2lip_tpu_torch.ops.kernels.conv_block import fold_bn
-    from speech2lip_tpu_torch.ops import geometry
     from speech2lip_tpu_torch.tools import bench_int8_dot as k8tool
+    from speech2lip_tpu_torch.tools import bench_hat_sample as k7tool
     from speech2lip_tpu_torch.tools import bench_window_sample as k2tool
     from speech2lip_tpu_torch.train import train_step as ts
     from speech2lip_tpu_torch.train import trainer
@@ -411,42 +413,13 @@ def main() -> int:
 
     def k7_cases(dtype):
         """(name, src, grid, cotangent, (y_off, x_off, H, W)) of K7 at the
-        main path's shapes: the blackaug window gather (full-frame source,
-        the warp window's points), the depth-loss points (the head-minus-
-        face ring's S support points, border-clamped) and a grid exactly
-        on pixel centres (a 500x500 crop of a 512x512 image, where the
-        normalised coordinates of integers are exact)."""
-        b = 8
-        src = torch.rand(b, FACE, FACE, 3, device=dev, generator=gen).to(dtype)
-        win = batch["coord"][:, wy0:wy0 + wh, wx0:wx0 + ww].reshape(
-            b, wh * ww, 2).contiguous()
-        pts = trainer.depth_loss_points(
-            raw["mask_head_canonical"][0], raw["mask_face_canonical"][0],
-            raw["rgb_face_zero"][0], device=dev)
-        depth = 0.8 + 0.4 * torch.rand(FACE, FACE, device=dev, generator=gen)
-        k = torch.from_numpy(geometry.intrinsics(geo["focal"], FACE,
-                                                 FACE)).to(dev)
-        rel = geometry.rel_pose_obs2can(
-            batch["canonical_euler"], batch["canonical_trans"],
-            batch["euler"], batch["trans"])
-        ring = geometry.warp_grid_points(
-            depth.reshape(-1)[pts["ys"] * FACE + pts["xs"]], pts["xs"],
-            pts["ys"], rel, k, torch.linalg.inv(k), FACE, FACE)
-        ring = khs.border_clamp(ring, FACE, FACE, 0, 0, FACE,
-                                FACE).contiguous()
-        cols = torch.randint(1, FACE - 1, (b, 2, 40000), device=dev,
-                             generator=gen)
-        on_px = ((2.0 * cols.float() + 1.0) / 512 - 1.0).transpose(1, 2)
-        out = []
-        for name, grid, g_geo in (
-                (f"window P={wh * ww}", win, (0, 0, FACE, FACE)),
-                (f"points S={ring.shape[1]}", ring, (0, 0, FACE, FACE)),
-                ("integer grid P=40000", on_px.contiguous(),
-                 (0, 0, 512, 512))):
-            cot = torch.randn(b, grid.shape[1], 3, device=dev,
-                              generator=gen).to(dtype)
-            out.append((name, src, grid, cot, g_geo))
-        return out
+        main path's shapes, from ``bench_hat_sample.cases``: the blackaug
+        window gather as the train step hands it over (the coord grid's
+        window view, the cotangent zero off the warped lip box) and as a
+        dense contiguous copy, the depth-loss points (border-clamped) and
+        a grid exactly on pixel centres."""
+        return [(f"{name} {tuple(c[1].shape)}", *c)
+                for name, c in k7tool.cases(dev, dtype).items()]
 
     def conv_cases(dtype, b=8):
         """(name, (x, w, scale, bias)) of the U-Net's ten convs at May
@@ -640,13 +613,23 @@ def main() -> int:
     # grid's window in place: no copy op between the slices and K2
     from torch.utils._python_dispatch import TorchDispatchMode
 
+    from torch.utils._pytree import tree_leaves
+
     class OpLog(TorchDispatchMode):
-        def __init__(self):
+        """The names of the ops dispatched; with ``watch``, only of those
+        that read a tensor sharing storage with a watched one."""
+
+        def __init__(self, watch=()):
             super().__init__()
             self.ops = []
+            self.storages = {t.untyped_storage().data_ptr() for t in watch}
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.ops.append(func.__name__)
+            if not self.storages or any(
+                    isinstance(t, torch.Tensor)
+                    and t.untyped_storage().data_ptr() in self.storages
+                    for t in tree_leaves((args, kwargs))):
+                self.ops.append(func.__name__)
             return func(*args, **(kwargs or {}))
 
     frame = torch.rand(8, FACE, FACE, 3, device=dev, generator=gen).to(bf)
@@ -660,7 +643,34 @@ def main() -> int:
     log(f"# composite window sample (kernels): ops {oplog.ops}; copies "
         f"{copies or 'none'}")
     require(not copies, f"the composite copies K2's inputs: {copies}")
-    del frame
+
+    # the training composite's window gather (hat_sample: K2 forward, K7
+    # dsrc backward) takes the same views: no copy op reads the crop, the
+    # window or the cotangent in either pass; and dsrc on the window view
+    # (the coord grid holds the batch innermost) against its plain version
+    crop_leaf = frame[:, y0b - 1:y1b + 1, x0b - 1:x1b + 1].detach()
+    crop_leaf.requires_grad_(True)
+    grid_w = batch["coord"][:, wy0:wy0 + wh, wx0:wx0 + ww]
+    k7_geo = (y0b - 1, x0b - 1, FACE, FACE)
+    with OpLog(watch=(crop_leaf, grid_w)) as fwd_log:
+        out = khs.hat_sample(crop_leaf, grid_w, *k7_geo)
+    cot = torch.randn(out.shape, device=dev, generator=gen).to(bf)
+    with OpLog(watch=(crop_leaf, grid_w, cot)) as bwd_log:
+        (dsrc,) = torch.autograd.grad(out, [crop_leaf], cot)
+    copies = [op for op in fwd_log.ops + bwd_log.ops
+              if op.split(".")[0] in ("clone", "copy_", "_to_copy",
+                                      "contiguous")]
+    log(f"# hat_sample on the crop and window views: forward ops "
+        f"{fwd_log.ops}, backward ops {bwd_log.ops}; copies "
+        f"{copies or 'none'}")
+    require(not copies and bwd_log.ops,
+            f"hat_sample copies K2's or K7's inputs: {copies}")
+    ref = khs.hat_sample_dsrc_plain(grid_w, cot, *crop_leaf.shape[1:3],
+                                    *k7_geo)
+    check("K7 hat_sample_dsrc bfloat16 window view "
+          f"{tuple(grid_w.shape)} strides {grid_w.stride()}", [(dsrc, ref)],
+          K7_BOUND["dsrc"][bf])
+    del frame, crop_leaf, out, cot, dsrc, ref
 
     # the slice in float32 on a small input, kernels vs plain path
     small, sgeo = synthetic_batch(2, face=64, lip_h=16, lip_w=24, seed=SEED)
@@ -778,8 +788,9 @@ def main() -> int:
                      kmlp.launches, kfb.launches)
     # per stage-1 step: K2 twice (the window gather and the depth-loss
     # points, forward), dsrc once (the window gather's source is rendered,
-    # its grid is data), dgrid once (the points' grid follows the learned
-    # depth, their source is data); K1 and K3 serve inference only
+    # its grid is data; a call is khs.DSRC_DEVICE_LAUNCHES[bf] device
+    # launches), dgrid once (the points' grid follows the learned depth,
+    # their source is data); K1 and K3 serve inference only
     for mod in (kmlp, kws, kfb):
         mod.launches = 0
     khs.dsrc_launches = khs.dgrid_launches = 0
@@ -1081,40 +1092,67 @@ def main() -> int:
     del args
     torch.cuda.empty_cache()
 
-    # K7 at the main path's shapes: dsrc on the window gather, dgrid on
-    # the depth-loss points; library: aten.grid_sampler_2d_backward on
-    # float32 copies (one dtype for source and grid)
-    cases = {c[0].split()[0]: c for c in k7_cases(bf)}
-    _, src, grid, cot, g_geo = cases["window"]
-    dsrc = khs.hat_sample_dsrc(grid, cot, FACE, FACE, *g_geo)
-    src32 = src.float().permute(0, 3, 1, 2).contiguous()
-    g4 = k2tool.crop_grid(grid, *g_geo, FACE, FACE)
-    cot32 = cot.float().transpose(1, 2)[:, :, None].contiguous()
+    # K7 at the main path's shapes: dsrc on the window gather as the train
+    # step hands it over (the window view, the cotangent zero off the lip
+    # box), dgrid on the depth-loss points; library:
+    # aten.grid_sampler_2d_backward on float32 copies (one dtype for
+    # source and grid)
+    cases = k7tool.cases(dev, bf)
     backward = torch.ops.aten.grid_sampler_2d_backward
-    k_ms, l_ms, extra = timed_turns(
-        "K7 hat_sample_dsrc",
-        lambda: khs.hat_sample_dsrc(grid, cot, FACE, FACE, *g_geo),
-        lambda: backward(cot32, src32, g4, 0, 0, False, [True, False]))
-    row("hat_sample_dsrc", k_ms,
-        cuda_ms(lambda: khs.hat_sample_dsrc_plain(grid, cot, FACE, FACE,
-                                                  *g_geo)),
-        l_ms, 8.0 * cot.numel(), nbytes(grid, cot, dsrc), "f32", extra=extra)
-    _, src, grid, cot, g_geo = cases["points"]
-    dgrid = khs.hat_sample_dgrid(src, grid, cot, *g_geo)
-    src32 = src.float().permute(0, 3, 1, 2).contiguous()
-    g4 = k2tool.crop_grid(grid, *g_geo, FACE, FACE)
-    cot32 = cot.float().transpose(1, 2)[:, :, None].contiguous()
-    k_ms, l_ms, extra = timed_turns(
-        "K7 hat_sample_dgrid",
-        lambda: khs.hat_sample_dgrid(src, grid, cot, *g_geo),
-        lambda: backward(cot32, src32, g4, 0, 0, False, [False, True]))
-    # the points read 4 taps each of the source, not the whole frame
-    row("hat_sample_dgrid", k_ms,
-        cuda_ms(lambda: khs.hat_sample_dgrid_plain(src, grid, cot, *g_geo)),
-        l_ms, 16.0 * cot.numel(),
-        min(nbytes(src), 4 * nbytes(cot)) + nbytes(grid, cot, dgrid), "f32",
-        extra=extra)
-    del cases, src, src32, dsrc
+    k7_local = {}
+    for which in ("dsrc", "dgrid"):
+        for dtype in (bf, torch.float32):
+            at = khs.attrs(which, dtype == bf)
+            log(f"# K7 attrs {which} {str(dtype).split('.')[1]}: "
+                f"{at['regs']} registers, {at['local_bytes']} local bytes, "
+                f"{at['smem_bytes']} static shared bytes")
+            require(dtype != bf or at["local_bytes"] == 0,
+                    f"K7 {which} bf16 uses local memory")
+            if dtype == bf:
+                k7_local[which] = at["local_bytes"]
+    for kern, case, mask, per_call_expected in (
+            ("dsrc", "train", [True, False], khs.DSRC_DEVICE_LAUNCHES[bf]),
+            ("dgrid", "points", [False, True], 1)):
+        src, grid, cot, g_geo = cases[case]
+        if kern == "dsrc":
+            kernel = lambda: khs.hat_sample_dsrc(grid, cot, FACE, FACE,
+                                                 *g_geo)
+            plain = lambda: khs.hat_sample_dsrc_plain(grid, cot, FACE, FACE,
+                                                      *g_geo)
+        else:
+            kernel = lambda: khs.hat_sample_dgrid(src, grid, cot, *g_geo)
+            plain = lambda: khs.hat_sample_dgrid_plain(src, grid, cot,
+                                                       *g_geo)
+        out = kernel()
+        src32 = src.float().permute(0, 3, 1, 2).contiguous()
+        g4 = k2tool.crop_grid(grid.reshape(8, -1, 2), *g_geo, FACE, FACE)
+        cot32 = cot.float().transpose(1, 2)[:, :, None].contiguous()
+        k_ms, l_ms, extra = timed_turns(
+            f"K7 hat_sample_{kern} {case}", kernel,
+            lambda: backward(cot32, src32, g4, 0, 0, False, mask))
+        # a call's device launches (dsrc: zero-fill, scatter, cast), from
+        # a profile of a few calls
+        _, per_call = profile_steps(kernel, f"K7 hat_sample_{kern} calls",
+                                    k_ms, steps=5)
+        require(per_call == per_call_expected, f"a {kern} call issues "
+                f"{per_call} device launches, expected {per_call_expected}")
+        extra.update(device_launches_per_call=per_call,
+                     local_bytes=k7_local[kern])
+        # the work of the points whose cotangent is nonzero; dgrid reads 4
+        # taps of each point, not the whole source
+        live = int((cot != 0).any(-1).sum())
+        if kern == "dsrc":
+            ops, moved = 8.0 * live * cot.shape[-1], nbytes(grid, cot, out)
+        else:
+            ops = 16.0 * live * cot.shape[-1]
+            moved = min(nbytes(src), 4 * nbytes(cot)) + nbytes(grid, cot,
+                                                                 out)
+        log(f"# K7 {kern} {case}: grid {tuple(grid.shape)} strides "
+            f"{grid.stride()}, {live} of {cot.shape[0] * cot.shape[1]} "
+            f"points with a nonzero cotangent")
+        row(f"hat_sample_{kern}", k_ms, cuda_ms(plain), l_ms, ops, moved,
+            "f32", extra=extra)
+    del cases, src, src32, out
 
     # K8 at the probe's shape.  Library: one cuBLAS call doing the same
     # 2*M*K*N*G*T operations, lhs tiled to [T*M, G*K] (materialised) times

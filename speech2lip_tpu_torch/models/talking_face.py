@@ -129,8 +129,9 @@ def _sample_box_region(merged_canonical, grid_w, box, h: int, w: int,
         src = merged_canonical[:, y0b - 1:y1b + 1, x0b - 1:x1b + 1]
         bb, wh, ww, _ = grid_w.shape
         if pallas_gather:
-            out = hat_sample(src, grid_w.reshape(bb, wh * ww, 2), y0b - 1,
-                             x0b - 1, h, w, kernels=use_kernels)
+            # K2 and K7 read the crop and the window in place
+            out = hat_sample(src, grid_w, y0b - 1, x0b - 1, h, w,
+                             kernels=use_kernels)
         elif use_kernels:
             # K2 reads the crop and the window in place: no copy of either
             out = window_sample(src, grid_w, y0b - 1, x0b - 1, h, w)
@@ -205,7 +206,8 @@ def post_fusion_composite(rgb_lip, face_canonical, rgb_gt, mask_lip, coord,
             full = grid_sample(merged_canonical.detach(), coord)
         grid_w = coord[:, wy0:wy0 + wh, wx0:wx0 + ww]
         if pallas_gather:
-            win = hat_sample(merged_canonical, grid_w.reshape(b, wh * ww, 2),
+            # the window view as it is: K2 and K7 read it in place
+            win = hat_sample(merged_canonical, grid_w,
                              kernels=use_kernels).reshape(b, wh, ww, 3)
         else:
             win = grid_sample(merged_canonical, grid_w)

@@ -57,17 +57,15 @@ SIGNATURES = {
     # (bf16, cmid, cout, regs*, local_bytes*, smem_bytes*): one K5
     # instance's cudaFuncGetAttributes
     "double_conv_attrs": [_I, _I, _I, _IP, _IP, _IP],
-    # (grid, g, dsrc, b, hs, ws, c, p, y_off, x_off, height, width, stream)
-    "hat_sample_dsrc_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _P],
-    "hat_sample_dsrc_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                            _P],
-    # (src, grid, g, dgrid, b, hs, ws, c, p, y_off, x_off, height, width,
+    # (args: the packed int64 words of hat_sample.cu's Args, their count,
     #  stream)
-    "hat_sample_dgrid_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _P],
-    "hat_sample_dgrid_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _I, _P],
+    "hat_sample_dsrc_bf16": [_B, _I, _P],
+    "hat_sample_dsrc_f32": [_B, _I, _P],
+    "hat_sample_dgrid_bf16": [_B, _I, _P],
+    "hat_sample_dgrid_f32": [_B, _I, _P],
+    # (which: 0 dsrc, 1 dgrid; bf16, regs*, local_bytes*, smem_bytes*): one
+    #  K7 instance's cudaFuncGetAttributes
+    "hat_sample_attrs": [_I, _I, _IP, _IP, _IP],
     # (lhs, rhs, out, m, k, n, g, t, stream)
     "dot_probe_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # (lhs, rhs, rhs_nk scratch, out, m, k, n, g, t, stream)

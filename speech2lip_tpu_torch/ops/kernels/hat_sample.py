@@ -3,27 +3,43 @@
 Replaces ``speech2lip_tpu/ops/pallas/hat_sample.py:hat_sample``, whose
 custom VJP runs K2 (``window_sample``) forward and two Pallas kernels
 backward, ``_dsrc`` and ``_dgrid``.  Here a ``torch.autograd.Function``
-runs K2 forward and the two CUDA kernels backward, each only when its
+runs K2 forward and the two CUDA backward kernels, each only when its
 cotangent is needed: the train step's window gather samples at a data
 grid (dsrc only), its depth-loss points sample a data image (dgrid only).
-The TPU kernels wrote both as dense hat-weight matmuls; on the H100 one
-thread per point scatters (dsrc, float32 atomics) or gathers (dgrid) its
-four taps.  The derivative follows the JAX convention hat'(u) = -sign(u)
-on |u| < 1, so a coordinate that is exactly an integer gets 0 for that
+The TPU kernels wrote both as dense hat-weight matmuls.  On the H100 a
+thread per point scatters its four taps into a zeroed float32 buffer with
+atomics (dsrc, cast to the source's dtype after) or gathers them (dgrid).
+Both read the grid ([B, P, 2] or a [B, wh, ww, 2] window view) and the
+cotangent in place and pass their arguments as one packed block, as K2
+does.  The derivative follows the JAX convention hat'(u) = -sign(u) on
+|u| < 1, so a coordinate that is exactly an integer gets 0 for that
 component; the plain versions below compute the same thing and are a
 custom backward, not autograd through ``window_sample_plain``.
 """
 
 from __future__ import annotations
 
+import struct
+
 import torch
 
 from speech2lip_tpu_torch.ops.kernels import _build
 from speech2lip_tpu_torch.ops.kernels.window_sample import (
-    window_sample, window_sample_plain)
+    grid_layout, window_sample, window_sample_plain)
 
-dsrc_launches = 0   # kernel launches by ``hat_sample_dsrc`` in this process
+dsrc_launches = 0   # ``hat_sample_dsrc`` calls that reached the card
 dgrid_launches = 0  # kernel launches by ``hat_sample_dgrid`` in this process
+
+# device launches of one ``hat_sample_dsrc`` call by dtype: the float32
+# buffer's zero-fill, the scatter kernel, and in bfloat16 the cast
+DSRC_DEVICE_LAUNCHES = {torch.bfloat16: 3, torch.float32: 2}
+
+# the C entries' one block of arguments (``Args`` in csrc/hat_sample.cu):
+# src, grid, g, out pointers; src batch / row strides; grid batch / row /
+# point strides; g batch / point / channel strides; b, hs, ws, c, p, gw;
+# y_off, x_off, height, width
+_N_ARGS = 22
+_ARGS = struct.Struct(f"<{_N_ARGS}q")
 
 
 def _taps(grid, hs: int, ws: int, y_off: int, x_off: int, height: int,
@@ -54,9 +70,10 @@ def _taps(grid, hs: int, ws: int, y_off: int, x_off: int, height: int,
 def hat_sample_dsrc_plain(grid, g, hs: int, ws: int, y_off: int, x_off: int,
                           height: int, width: int):
     """dL/dsrc as PyTorch ops: the hat-weighted scatter of the cotangent
-    g [B, P, C] onto a zeroed float32 [B, Hs, Ws, C] source, returned in
-    g's dtype (the source's)."""
+    g [B, P, C] (grid [B, P, 2] or [B, wh, ww, 2]) onto a zeroed float32
+    [B, Hs, Ws, C] source, returned in g's dtype (the source's)."""
     b, _, c = g.shape
+    grid = grid.reshape(b, -1, 2)
     gf = g.float()
     out = torch.zeros(b, hs * ws, c, dtype=torch.float32, device=g.device)
     for idx, wy, wx, _, _, ok in _taps(grid, hs, ws, y_off, x_off, height,
@@ -68,9 +85,11 @@ def hat_sample_dsrc_plain(grid, g, hs: int, ws: int, y_off: int, x_off: int,
 
 def hat_sample_dgrid_plain(src, grid, g, y_off: int, x_off: int,
                            height: int, width: int):
-    """dL/dgrid [B, P, 2] float32 as PyTorch ops: the four taps blended
-    with hat-derivative weights, chained by width/2 and height/2."""
+    """dL/dgrid [B, P, 2] float32 as PyTorch ops (grid [B, P, 2] or
+    [B, wh, ww, 2]): the four taps blended with hat-derivative weights,
+    chained by width/2 and height/2."""
     b, hs, ws, c = src.shape
+    grid = grid.reshape(b, -1, 2)
     flat = src.reshape(b, hs * ws, c).float()
     gf = g.float()
     dix = torch.zeros(grid.shape[:2], dtype=torch.float32, device=g.device)
@@ -84,72 +103,104 @@ def hat_sample_dgrid_plain(src, grid, g, y_off: int, x_off: int,
     return torch.stack([dix * (width * 0.5), diy * (height * 0.5)], dim=-1)
 
 
-def _check(name, grid, g, p_dtype, c: int):
-    if g.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {g.device}")
-    if g.dtype not in (torch.bfloat16, torch.float32) or g.dtype != p_dtype:
-        raise TypeError(f"{name}: dtype {g.dtype} (bfloat16 or float32, the "
-                        "source's)")
-    b = g.shape[0]
-    if (grid.dim() != 3 or grid.shape[0] != b or grid.shape[2] != 2
-            or grid.dtype != torch.float32 or grid.device != g.device
-            or g.dim() != 3 or g.shape[1] != grid.shape[1]
-            or g.shape[2] != c):
-        raise ValueError(f"{name}: grid must be float32 [B, P, 2] and g "
-                         f"[B, P, {c}] on {g.device}, got grid {grid.dtype} "
-                         f"{tuple(grid.shape)} g {tuple(g.shape)}")
-    if not (grid.is_contiguous() and g.is_contiguous()):
-        raise ValueError(f"{name}: inputs must be contiguous")
+def _layout(name, grid, g, b: int, c: int, device: int):
+    """The grid's (p, gw, batch, row, point stride) for cotangent g
+    [B, P, C] on the same device; raises on anything else."""
+    layout = grid_layout(grid, b, device)
+    if (layout is None or g.dim() != 3
+            or tuple(g.shape) != (b, layout[0], c)
+            or g.get_device() != device):
+        raise ValueError(f"{name}: grid must be float32 [B, P, 2] or "
+                         "[B, wh, ww, 2] with coordinate stride 1 and g "
+                         f"[B, P, {c}] on one device, got grid {grid.dtype} "
+                         f"{tuple(grid.shape)} strides {grid.stride()} on "
+                         f"{grid.device}, g {tuple(g.shape)} on {g.device}")
+    return layout
 
 
 def hat_sample_dsrc(grid, g, hs: int, ws: int, y_off: int, x_off: int,
                     height: int, width: int):
     """dL/dsrc [B, Hs, Ws, C] in g's dtype of the crop sample at grid
-    [B, P, 2] for cotangent g [B, P, C].  CPU tensors run the plain
-    version; CUDA tensors launch the kernel."""
-    if g.device.type == "cpu":
-        return hat_sample_dsrc_plain(grid, g, hs, ws, y_off, x_off, height,
-                                     width)
+    [B, P, 2] or [B, wh, ww, 2] for cotangent g [B, P, C].  CPU tensors run
+    the plain version; CUDA tensors launch the kernel, which reads grid
+    and g in place (coordinate stride 1, any other strides) and adds into
+    a zeroed float32 buffer, cast to g's dtype after."""
+    if not g.is_cuda:
+        if g.device.type == "cpu":
+            return hat_sample_dsrc_plain(grid, g, hs, ws, y_off, x_off,
+                                         height, width)
+        raise ValueError(f"hat_sample_dsrc: unsupported device {g.device}")
     global dsrc_launches
-    _check("hat_sample_dsrc", grid, g, g.dtype, g.shape[-1])
-    b, p, c = g.shape
-    acc = torch.zeros((b, hs, ws, c), dtype=torch.float32, device=g.device)
-    lib = _build.library()
-    fn = (lib.hat_sample_dsrc_bf16 if g.dtype == torch.bfloat16
-          else lib.hat_sample_dsrc_f32)
-    err = fn(grid.data_ptr(), g.data_ptr(), acc.data_ptr(), b, hs, ws, c, p,
-             int(y_off), int(x_off), int(height), int(width),
-             _build.stream_ptr(g))
+    dtype = g.dtype
+    if dtype is torch.bfloat16:
+        fn = _build.library().hat_sample_dsrc_bf16
+    elif dtype is torch.float32:
+        fn = _build.library().hat_sample_dsrc_f32
+    else:
+        raise TypeError(f"hat_sample_dsrc: dtype {dtype} (bfloat16 or "
+                        "float32, the source's)")
+    shape = g.shape
+    b, c = shape[0], shape[-1]
+    p, gw, gb, gr, gp = _layout("hat_sample_dsrc", grid, g, b, c,
+                                g.get_device())
+    acc = g.new_zeros((b, hs, ws, c), dtype=torch.float32)
+    sb, sp, sc = g.stride()
+    err = fn(_ARGS.pack(0, grid.data_ptr(), g.data_ptr(), acc.data_ptr(),
+                        0, 0, gb, gr, gp, sb, sp, sc, b, hs, ws, c, p, gw,
+                        y_off, x_off, height, width),
+             _N_ARGS, _build.stream_ptr(g))
     _build.check(err, "hat_sample_dsrc")
     dsrc_launches += 1
-    return acc.to(g.dtype)
+    return acc.to(dtype)
 
 
 def hat_sample_dgrid(src, grid, g, y_off: int, x_off: int, height: int,
                      width: int):
     """dL/dgrid [B, P, 2] float32 of the crop sample of src [B, Hs, Ws, C]
-    at grid [B, P, 2] for cotangent g [B, P, C] in src's dtype.  CPU
-    tensors run the plain version; CUDA tensors launch the kernel."""
-    if src.device.type == "cpu":
-        return hat_sample_dgrid_plain(src, grid, g, y_off, x_off, height,
-                                      width)
+    at grid [B, P, 2] or [B, wh, ww, 2] for cotangent g [B, P, C] in src's
+    dtype.  CPU tensors run the plain version; CUDA tensors launch the
+    kernel, which reads all three in place (src: channel stride 1, pixel
+    stride C; grid: coordinate stride 1)."""
+    if not src.is_cuda:
+        if src.device.type == "cpu":
+            return hat_sample_dgrid_plain(src, grid, g, y_off, x_off,
+                                          height, width)
+        raise ValueError(f"hat_sample_dgrid: unsupported device "
+                         f"{src.device}")
     global dgrid_launches
+    dtype = src.dtype
+    if dtype is torch.bfloat16:
+        fn = _build.library().hat_sample_dgrid_bf16
+    elif dtype is torch.float32:
+        fn = _build.library().hat_sample_dgrid_f32
+    else:
+        raise TypeError(f"hat_sample_dgrid: dtype {dtype}")
+    if g.dtype is not dtype:
+        raise TypeError(f"hat_sample_dgrid: g {g.dtype}, src {dtype}")
     b, hs, ws, c = src.shape
-    _check("hat_sample_dgrid", grid, g, src.dtype, c)
-    if not src.is_contiguous() or src.device != g.device:
-        raise ValueError("hat_sample_dgrid: src must be contiguous on "
-                         f"{g.device}")
-    p = grid.shape[1]
-    out = torch.empty((b, p, 2), dtype=torch.float32, device=src.device)
-    lib = _build.library()
-    fn = (lib.hat_sample_dgrid_bf16 if src.dtype == torch.bfloat16
-          else lib.hat_sample_dgrid_f32)
-    err = fn(src.data_ptr(), grid.data_ptr(), g.data_ptr(), out.data_ptr(),
-             b, hs, ws, c, p, int(y_off), int(x_off), int(height),
-             int(width), _build.stream_ptr(src))
+    p, gw, gb, gr, gp = _layout("hat_sample_dgrid", grid, g, b, c,
+                                src.get_device())
+    sb, sr, spx, sch = src.stride()
+    if sch != 1 or spx != c:
+        raise ValueError("hat_sample_dgrid: src needs channel stride 1 and "
+                         f"pixel stride C, got {src.stride()}")
+    out = grid.new_empty((b, p, 2))
+    sgb, sgp, sgc = g.stride()
+    err = fn(_ARGS.pack(src.data_ptr(), grid.data_ptr(), g.data_ptr(),
+                        out.data_ptr(), sb, sr, gb, gr, gp, sgb, sgp, sgc,
+                        b, hs, ws, c, p, gw, y_off, x_off, height, width),
+             _N_ARGS, _build.stream_ptr(src))
     _build.check(err, "hat_sample_dgrid")
     dgrid_launches += 1
     return out
+
+
+def attrs(which: str, bf16: bool) -> dict:
+    """Registers, local-memory bytes per thread and static shared bytes
+    per block of one K7 kernel instance, ``which`` "dsrc" or "dgrid"
+    (builds the kernels, needs the CUDA runtime)."""
+    return _build.func_attrs("hat_sample_attrs",
+                             ("dsrc", "dgrid").index(which), int(bf16))
 
 
 class _HatSample(torch.autograd.Function):
@@ -158,8 +209,8 @@ class _HatSample(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, src, grid, y_off, x_off, height, width, kernels):
-        # K2 reads src and grid in place; the backward kernels take
-        # contiguous inputs, copied there only when their cotangent is due
+        # K2 and the backward kernels read src, grid and the cotangent in
+        # place: no copy on either side
         ctx.save_for_backward(src, grid)
         ctx.geom = (y_off, x_off, height, width)
         ctx.kernels = kernels
@@ -170,8 +221,6 @@ class _HatSample(torch.autograd.Function):
     def backward(ctx, g):
         src, grid = ctx.saved_tensors
         y_off, x_off, height, width = ctx.geom
-        grid = grid.contiguous()
-        g = g.contiguous()
         dsrc = dgrid = None
         if ctx.needs_input_grad[0]:
             fn = hat_sample_dsrc if ctx.kernels else hat_sample_dsrc_plain
@@ -179,8 +228,8 @@ class _HatSample(torch.autograd.Function):
                       height, width)
         if ctx.needs_input_grad[1]:
             fn = hat_sample_dgrid if ctx.kernels else hat_sample_dgrid_plain
-            dgrid = fn(src.contiguous(), grid, g, y_off, x_off, height,
-                       width).to(grid.dtype)
+            dgrid = fn(src, grid, g, y_off, x_off, height,
+                       width).reshape(grid.shape).to(grid.dtype)
         return dsrc, dgrid, None, None, None, None, None
 
 
@@ -200,12 +249,13 @@ def border_clamp(grid, hs: int, ws: int, y_off: int, x_off: int,
 def hat_sample(src, grid, y_off: int = 0, x_off: int = 0, height=None,
                width=None, border: bool = False, kernels: bool = True):
     """Differentiable bilinear sample of the crop src [B, Hs, Ws, C] =
-    image[y_off:, x_off:] at grid [B, P, 2] float32 ((x, y) in [-1, 1] of
-    the full (height, width) image, default the crop's own size,
-    align_corners=False).  ``border`` clamps the grid to the crop's pixel
+    image[y_off:, x_off:] at grid [B, P, 2] or [B, wh, ww, 2] float32 ((x,
+    y) in [-1, 1] of the full (height, width) image, default the crop's own
+    size, align_corners=False; a window view of a larger grid is read in
+    place).  ``border`` clamps the grid to the crop's pixel
     range first, outside the Function, so the clamp's zero gradient rides
     autograd; otherwise footprints outside the crop read zeros.  Returns
-    [B, P, C] in src's dtype."""
+    [B, P, C] in src's dtype (P = wh * ww for a 4-D grid)."""
     _, hs, ws, _ = src.shape
     height = hs if height is None else height
     width = ws if width is None else width

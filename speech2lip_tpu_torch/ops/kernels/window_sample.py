@@ -29,6 +29,29 @@ _N_ARGS = 18
 _ARGS = struct.Struct(f"<{_N_ARGS}q")
 
 
+def grid_layout(grid, b: int, device: int):
+    """(p, gw, batch stride, row stride, point stride) of a float32 grid
+    [B, P, 2] or [B, wh, ww, 2] (P = wh * ww points in rows of gw) whose
+    two coordinates are adjacent, on CUDA device ``device``; None for any
+    other grid.  K2 and K7 read such a grid in place."""
+    shape = grid.shape
+    if len(shape) == 4:
+        gb, gr, gp, gc = grid.stride()
+        gw = shape[2]
+        p = shape[1] * gw
+    elif len(shape) == 3:
+        gb, gp, gc = grid.stride()
+        gw = p = shape[1]
+        gr = p * gp
+    else:
+        return None
+    if (gc != 1 or shape[0] != b or shape[-1] != 2
+            or grid.dtype is not torch.float32
+            or grid.get_device() != device):
+        return None
+    return p, gw, gb, gr, gp
+
+
 def window_sample_plain(src, grid, y_off: int, x_off: int, height: int,
                         width: int):
     """Zero-outside-the-crop bilinear sample as PyTorch ops.
@@ -86,25 +109,14 @@ def window_sample(src, grid, y_off: int, x_off: int, height: int,
     else:
         raise TypeError(f"window_sample: dtype {dtype}")
     b, hs, ws, c = src.shape
-    gshape = grid.shape
-    gs = grid.stride()
-    if len(gshape) == 4:
-        gb, gr, gp, gc = gs
-        gw = gshape[2]
-        p = gshape[1] * gw
-    elif len(gshape) == 3:
-        gb, gp, gc = gs
-        gw = p = gshape[1]
-        gr = p * gp
-    else:
-        gc = 0
-    if (gc != 1 or gshape[0] != b or gshape[-1] != 2
-            or grid.dtype is not torch.float32
-            or grid.get_device() != src.get_device()):
+    layout = grid_layout(grid, b, src.get_device())
+    if layout is None:
         raise ValueError("window_sample: grid must be float32 [B, P, 2] or "
                          f"[B, wh, ww, 2] with coordinate stride 1 on "
-                         f"{src.device}, got {grid.dtype} {tuple(gshape)} "
-                         f"strides {gs} on {grid.device}")
+                         f"{src.device}, got {grid.dtype} "
+                         f"{tuple(grid.shape)} strides {grid.stride()} on "
+                         f"{grid.device}")
+    p, gw, gb, gr, gp = layout
     sb, sr, sp, sc = src.stride()
     if sc != 1 or sp != c:
         raise ValueError("window_sample: src needs channel stride 1 and "

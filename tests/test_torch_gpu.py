@@ -431,10 +431,21 @@ def test_render_pixels_kernel(cuda, dtype):
     assert _rel_err(got, ref) < BOUND[dtype]
 
 
+# K7 cases: the main path's three, then taps across 32-pixel borders, a
+# ragged crop, taps at the crop's edges, a window view, a sparse cotangent,
+# C = 1 and C = 5
+HAT_CASES = ["window", "points", "integer", "straddle", "ragged", "edges",
+             "window_view", "sparse", "straddle_c1", "ragged_c1", "edges_c1",
+             "window_view_c1", "sparse_c1", "ragged_c5"]
+
+
 def _hat_case(cuda, dtype, case):
     """(src, grid, cotangent, geometry) of a K7 case: a full-frame source
     as the blackaug window gather has it, a crop sampled border-clamped as
-    the depth-loss points are, or a grid exactly on pixel centres."""
+    the depth-loss points are, or a grid exactly on pixel centres; the
+    other cases come from ``_hat_edge_case``."""
+    if case not in ("window", "points", "integer"):
+        return _hat_edge_case(cuda, dtype, case)
     g = torch.Generator(device=cuda).manual_seed(4)
     b, p = 2, 6000
     if case == "window":
@@ -459,8 +470,74 @@ def _hat_case(cuda, dtype, case):
     return src, grid.float().contiguous(), cot, (y_off, x_off, h, w)
 
 
+def _hat_edge_case(cuda, dtype, case):
+    """(src, grid, cotangent, geometry) of a K7 case ``name[_c<C>]`` (C
+    channels, default 3):
+    - straddle: every point's taps straddle a 32-pixel border, in x, in y
+      or in both;
+    - ragged: a 45x77 crop (no multiple of 16 or 32) with points across
+      its edges;
+    - edges: points whose first tap column or row is -1 or the crop's
+      last (x0 or y0 at -1 and at Ws-1 / Hs-1);
+    - window_view: the grid a [B, wh, ww, 2] window of a larger coord grid
+      and the cotangent a slice of a wider one (non-unit strides);
+    - sparse: the cotangent zero on most points (as the train step's is
+      off the lip box), the points in the source's upper-left quarter, the
+      cotangent transposed (channel stride P)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    name, _, ch = case.partition("_c")
+    c = int(ch) if ch else 3
+    b, p = 2, 6000
+    if name in ("ragged", "edges"):
+        hs, ws, h, w, y_off, x_off, spill = 45, 77, 100, 120, 20, 30, 4
+    else:
+        hs, ws, h, w, y_off, x_off, spill = 96, 128, 96, 128, 0, 0, 3
+    src = torch.rand(b, hs, ws, c, device=cuda, generator=g).to(dtype)
+    # crop pixel coordinates (ix, iy) -> the grid normalised to (h, w)
+    to_grid = lambda ix, iy: torch.stack([(2 * (ix + x_off) + 1) / w - 1,
+                                          (2 * (iy + y_off) + 1) / h - 1], -1)
+    u = torch.rand(b, p, 2, device=cuda, generator=g)
+    k = torch.randint(0, 4, (b, p, 2), device=cuda, generator=g)
+    if name == "straddle":
+        # x0 = 32k - 1 (taps 32k - 1 and 32k) in x, y or both, by thirds
+        border = 32.0 * (k + 1) - 1 + u
+        free = torch.rand(b, p, 2, device=cuda, generator=g) * torch.tensor(
+            [ws - 1.0, hs - 1.0], device=cuda)
+        which = torch.arange(p, device=cuda) % 3
+        ix = torch.where(which != 1, border[..., 0], free[..., 0])
+        iy = torch.where(which != 0, border[..., 1], free[..., 1])
+        grid = to_grid(ix, iy)
+    elif name == "edges":
+        # first tap at -1 or at the last pixel, in x, y or both
+        lo_hi = lambda size, kk: torch.where(kk % 2 == 0, -1.0, size - 1.0)
+        ex = lo_hi(ws, k[..., 0]) + u[..., 0]
+        ey = lo_hi(hs, k[..., 1]) + u[..., 1]
+        fx = torch.rand(b, p, device=cuda, generator=g) * (ws - 1)
+        fy = torch.rand(b, p, device=cuda, generator=g) * (hs - 1)
+        which = torch.arange(p, device=cuda) % 3
+        grid = to_grid(torch.where(which != 1, ex, fx),
+                       torch.where(which != 0, ey, fy))
+    else:
+        span = 0.5 if name == "sparse" else 1.0
+        grid = to_grid(-spill + (span * ws + 2 * spill) * u[..., 0],
+                       -spill + (span * hs + 2 * spill) * u[..., 1])
+    grid = grid.float().contiguous()
+    cot = torch.randn(b, p, c, device=cuda, generator=g).to(dtype)
+    if name == "window_view":
+        # the points as rows of 60 in a larger [B, 140, 90, 2] grid
+        coord = torch.rand(b, 140, 90, 2, device=cuda, generator=g)
+        coord[:, 20:120, 10:70] = grid.reshape(b, 100, 60, 2)
+        grid = coord[:, 20:120, 10:70]
+        cot = torch.randn(b, p, c + 2, device=cuda, generator=g).to(
+            dtype)[..., 1:c + 1]
+    elif name == "sparse":
+        keep = torch.rand(b, p, 1, device=cuda, generator=g) < 0.1
+        cot = (cot * keep).transpose(1, 2).contiguous().transpose(1, 2)
+    return src, grid, cot, (y_off, x_off, h, w)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("case", ["window", "points", "integer"])
+@pytest.mark.parametrize("case", HAT_CASES)
 def test_hat_sample_backward_kernels(cuda, dtype, case):
     src, grid, cot, geo = _hat_case(cuda, dtype, case)
     hs, ws = src.shape[1:3]
@@ -473,14 +550,95 @@ def test_hat_sample_backward_kernels(cuda, dtype, case):
     assert dsrc.dtype == dtype and dgrid.dtype == torch.float32
     # dsrc: float32 atomics add in another order, bf16 then rounds once
     # (one ulp apart at most); dgrid: the same inputs and float32 sums
-    assert _rel_err(dsrc, khs.hat_sample_dsrc_plain(grid, cot, hs, ws, *geo)
-                    ) < (1e-5 if dtype == torch.float32 else 1e-2)
+    ref = khs.hat_sample_dsrc_plain(grid, cot, hs, ws, *geo)
+    assert _rel_err(dsrc, ref) < (1e-5 if dtype == torch.float32 else 1e-2)
     assert _rel_err(dgrid, khs.hat_sample_dgrid_plain(src, grid, cot, *geo)
                     ) < 1e-5
+    # a pixel no tap of a live point reaches reads exactly 0
+    reached = khs.hat_sample_dsrc_plain(grid, cot.float().abs(), hs, ws,
+                                        *geo) != 0
+    assert bool((dsrc[~reached] == 0).all())
+    if case.startswith("sparse"):
+        assert float((~reached).float().mean()) > 0.5
     if case == "integer":
         # hat'(u) = -sign(u) on |u| < 1: exactly on a pixel the grid
         # gradient is 0
         assert bool((dgrid == 0).all())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_hat_sample_backward_kernels_in_a_cuda_graph(cuda, dtype):
+    """dsrc's launches (zero-fill, scatter, cast) and dgrid's, captured in
+    a CUDA graph on the capturing stream: the replay matches the eager
+    calls, and the plain versions again after the inputs change in place.
+    The counters count at capture."""
+    src, grid, cot, geo = _hat_case(cuda, dtype, "window_view")
+    hs, ws = src.shape[1:3]
+    both = lambda: (khs.hat_sample_dsrc(grid, cot, hs, ws, *geo),
+                    khs.hat_sample_dgrid(src, grid, cot, *geo))
+    eager = both()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        both()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = (khs.dsrc_launches, khs.dgrid_launches)
+    with torch.cuda.graph(graph):
+        outs = both()
+    assert (khs.dsrc_launches, khs.dgrid_launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    bound = 1e-5 if dtype == torch.float32 else 1e-2
+    for step in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        if step == 0:
+            assert _rel_err(outs[0], eager[0]) < bound
+            assert torch.equal(outs[1], eager[1])
+        assert _rel_err(outs[0], khs.hat_sample_dsrc_plain(
+            grid, cot, hs, ws, *geo)) < bound
+        assert _rel_err(outs[1], khs.hat_sample_dgrid_plain(
+            src, grid, cot, *geo)) < 1e-5
+        # new inputs in place: the graph reads them at the next replay
+        cot.mul_(-0.5)
+        grid.add_(0.013)
+        src.mul_(0.5)
+    assert (khs.dsrc_launches, khs.dgrid_launches) == (before[0] + 1,
+                                                       before[1] + 1)
+
+
+def test_hat_sample_kernels_have_no_local_memory(cuda):
+    """dsrc and dgrid, both dtypes, keep their state in registers."""
+    for which in ("dsrc", "dgrid"):
+        for bf16 in (False, True):
+            attrs = khs.attrs(which, bf16)
+            assert attrs["local_bytes"] == 0, (which, bf16, attrs)
+            assert 0 < attrs["regs"] <= 255
+
+
+def test_hat_sample_on_a_window_view(cuda):
+    """The Function hands the window view to K2 and K7 as it is: dsrc and
+    dgrid through hat_sample on the view match the kernels on contiguous
+    copies, and the grid's gradient lands in the window only."""
+    src, grid, cot, geo = _hat_case(cuda, torch.float32, "window_view")
+    coord = torch.zeros(2, 140, 90, 2, device=cuda)
+    coord[:, 20:120, 10:70] = grid
+    coord.requires_grad_(True)
+    s = src.clone().requires_grad_(True)
+    view = coord[:, 20:120, 10:70]
+    out = khs.hat_sample(s, view, *geo)
+    assert out.shape == (2, 6000, 3)
+    out.backward(cot)
+    flat = view.detach().reshape(2, -1, 2).contiguous()
+    hs, ws = src.shape[1:3]
+    assert _rel_err(s.grad, khs.hat_sample_dsrc(
+        flat, cot.contiguous(), hs, ws, *geo)) < 1e-5
+    assert torch.equal(coord.grad[:, 20:120, 10:70].reshape(2, -1, 2),
+                       khs.hat_sample_dgrid(src, flat, cot.contiguous(),
+                                            *geo))
+    outside = coord.grad.clone()
+    outside[:, 20:120, 10:70] = 0
+    assert bool((outside == 0).all())
 
 
 def test_hat_sample_launches_only_the_needed_kernels(cuda):

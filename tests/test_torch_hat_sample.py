@@ -176,3 +176,42 @@ def test_hat_sample_full_frame_defaults(interp):
         got = _port_vjp(src, grid, g, border, {})
         for name, a, r in zip(("value", "dsrc", "dgrid"), got, ref):
             assert _rel(a, r) < F32_TOL, (border, name)
+
+
+@pytest.mark.parametrize("form", ["window", "points"])
+def test_hat_sample_on_a_view_of_a_larger_grid(interp, form):
+    """The grid as the composites hand it over, a view of a larger coord
+    grid: a [B, wh, ww, 2] window, or a [B, P, 2] run of its flattened
+    points (non-unit batch and row strides).  Value and both cotangents
+    match the JAX hat_sample on the same points as a contiguous
+    [B, P, 2]; the coord grid's gradient is 0 outside the view."""
+    rng = np.random.default_rng(5)
+    b, hs, ws, h, w, y_off, x_off = 2, 22, 38, 100, 120, 40, 40
+    src = rng.uniform(0, 1, (b, hs, ws, 3)).astype(np.float32)
+    gx = rng.uniform((x_off - 4) / w * 2 - 1, (x_off + ws + 4) / w * 2 - 1,
+                     (b, 30, 50))
+    gy = rng.uniform((y_off - 4) / h * 2 - 1, (y_off + hs + 4) / h * 2 - 1,
+                     (b, 30, 50))
+    coord = np.stack([gx, gy], -1).astype(np.float32)
+    if form == "window":
+        view = lambda c: c[:, 5:25, 7:42]
+    else:
+        view = lambda c: c.reshape(b, -1, 2)[:, 101:801]
+    pts = np.ascontiguousarray(view(coord)).reshape(b, -1, 2)
+    g = rng.standard_normal((b, pts.shape[1], 3)).astype(np.float32)
+    geo = dict(y_off=y_off, x_off=x_off, height=h, width=w)
+    ref = _jax_vjp(src, pts, g, False, geo)
+    s = torch.from_numpy(src).requires_grad_(True)
+    q = torch.from_numpy(coord).requires_grad_(True)
+    grid = view(q)
+    assert not grid.is_contiguous()
+    out = ths.hat_sample(s, grid, **geo)
+    assert out.shape == (b, pts.shape[1], 3)
+    out.backward(torch.from_numpy(g))
+    dgrid = view(q.grad).reshape(b, -1, 2)
+    for name, a, r in zip(("value", "dsrc", "dgrid"), (out, s.grad, dgrid),
+                          ref):
+        assert _rel(a, r) < F32_TOL, name
+    outside = q.grad.clone()
+    view(outside)[...] = 0
+    assert bool((outside == 0).all())
