@@ -33,9 +33,10 @@ computing the same function where there is one, and the paths with CUDA
 events.  K2 and K7 get two times each, in turns with their library call:
 the call time (the row's ms, the host's dispatch included) and the device
 time (a CUDA graph of 100 calls replayed, device_ms); both K7 rows, on
-the train step's own inputs, also count their device launches a call by
-profile and carry the kernel's local bytes.  Needs one CUDA device; without one it exits non-zero before
-printing any result.
+the train step's own inputs, also count their device launches a call (the
+nodes of a CUDA graph of one call) and carry the kernel's local bytes.
+Needs one CUDA device; without one it exits non-zero before printing any
+result.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 each kernel's launches on its path, error, times and bound.
@@ -254,6 +255,42 @@ def profile_steps(run, what: str, step_ms: float, steps: int = 2):
     for key, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
         log(f"# profile   top {ms:.3f} ms {key[:110]}")
     return total, launches // steps
+
+
+# CUgraphNodeType values of work a call enqueues on the device
+GRAPH_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}
+
+
+def graph_launches(run) -> dict:
+    """The device work one call of ``run`` enqueues: the nodes of a CUDA
+    graph captured from that call, counted by kind (kernel, memcpy,
+    memset).  Exact, where a profile's count of the same call loses any
+    activity record that the profiler drops."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        run()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    require(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0,
+            "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    require(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0,
+            "cuGraphGetNodes failed")
+    kinds = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        require(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                      ctypes.byref(kind)) == 0,
+                "cuGraphNodeGetType failed")
+        name = GRAPH_NODE_KINDS.get(kind.value, f"type {kind.value}")
+        kinds[name] = kinds.get(name, 0) + 1
+    del graph
+    return kinds
 
 
 def train_inputs(dev, b, face, lip_h, lip_w, with_sync=False):
@@ -532,14 +569,15 @@ def main() -> int:
             errs[(kname, dtype)] = e
         torch.cuda.empty_cache()
 
-    # registers, local memory (spills land there) and shared memory of K5's
-    # eight instances and of the six of the conv kernel behind K3/K4/K6;
-    # the bf16 bodies must keep everything on chip
+    # registers, local memory (spills land there) and shared memory of K1's
+    # two instances, K5's eight and the six of the conv kernel behind
+    # K3/K4/K6; the bf16 bodies must keep everything on chip
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
-        insts = [(f"K5 attrs {dn} cmid {cmid} cout {cout}",
-                  kch.double_conv_attrs(dtype, cmid, cout))
-                 for cmid in (64, 128) for cout in (64, 128)]
+        insts = [(f"K1 fused_mlp_attrs {dn}", kmlp.fused_mlp_attrs(dtype))]
+        insts += [(f"K5 attrs {dn} cmid {cmid} cout {cout}",
+                   kch.double_conv_attrs(dtype, cmid, cout))
+                  for cmid in (64, 128) for cout in (64, 128)]
         insts += [(f"K3/K4/K6 conv3x3_attrs {dn} cout {cout}",
                    kfb.conv3x3_attrs(dtype, cout)) for cout in (64, 128, 256)]
         for what, at in insts:
@@ -1130,12 +1168,17 @@ def main() -> int:
         k_ms, l_ms, extra = timed_turns(
             f"K7 hat_sample_{kern} {case}", kernel,
             lambda: backward(cot32, src32, g4, 0, 0, False, mask))
-        # a call's device launches (dsrc: zero-fill, scatter, cast), from
-        # a profile of a few calls
-        _, per_call = profile_steps(kernel, f"K7 hat_sample_{kern} calls",
-                                    k_ms, steps=5)
-        require(per_call == per_call_expected, f"a {kern} call issues "
-                f"{per_call} device launches, expected {per_call_expected}")
+        # a call's device launches (dsrc: zero-fill, scatter, cast): the
+        # nodes of a graph of one call; a profile of a few calls logs the
+        # kernels' device time
+        profile_steps(kernel, f"K7 hat_sample_{kern} calls", k_ms, steps=5)
+        kinds = graph_launches(kernel)
+        per_call = sum(kinds.values())
+        log(f"# K7 hat_sample_{kern} call as a CUDA graph: {kinds}")
+        require(set(kinds) <= set(GRAPH_NODE_KINDS.values())
+                and per_call == per_call_expected, f"a {kern} call issues "
+                f"{kinds} on the device, expected {per_call_expected} "
+                "launches")
         extra.update(device_launches_per_call=per_call,
                      local_bytes=k7_local[kern])
         # the work of the points whose cotangent is nonzero; dgrid reads 4

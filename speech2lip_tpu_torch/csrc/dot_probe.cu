@@ -51,6 +51,8 @@
 // What bounds it: the tensor cores (0.21 ms bf16, 0.10 ms int8 at the
 // probe's shape); the operands come from L2, 48 KB a chunk for 4.2 M bf16
 // or 8.4 M int8 operations, ~85 / ~170 operations a byte per SM.
+// The mbarrier, TMA, descriptor and wgmma helpers and the tensor-map
+// lookup are ptx.cuh's, shared with K1's bf16 body (fused_mlp.cu).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,7 +60,11 @@
 
 #include <type_traits>
 
+#include "ptx.cuh"
+
 namespace {
+
+using namespace s2l;
 
 constexpr int kConsumers = 2;                    // warpgroups on the MMAs
 constexpr int kThreads = 128 * (kConsumers + 1); // + the producer warpgroup
@@ -74,98 +80,6 @@ constexpr int kRingBytes = kStages * kStageBytes;
 constexpr int kBytes = kRingBytes + 1024 + 2 * kStages * 8;
 static_assert(kBytes <= 232448, "shared memory");
 static_assert(kConsumers * 64 == kBm, "a consumer warpgroup per 64 rows");
-
-// ---- PTX: mbarriers, TMA, wgmma ------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-// until the phase of parity `parity` of the barrier has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-// a 2-D box at (c0 innermost, c1) of the tensor map into shared memory at
-// dst, its bytes counted on bar
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand at addr:
-// leading and stride byte offsets (see the rhs note above), swizzle mode 1
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lead, uint32_t stride) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lead >> 4) << 16) |
-         ((uint64_t)(stride >> 4) << 32) | (1ull << 62);
-}
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving reads or writes of an accumulator across
-// the asynchronous MMAs (empty asm that reads and writes the register)
-__device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r)::"memory"); }
-__device__ __forceinline__ void pin(int& r) { asm volatile("" : "+r"(r)::"memory"); }
-
-#define S2L_REGS128                                                                          \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
-  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "  \
-  "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "  \
-  "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "  \
-  "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "  \
-  "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "    \
-  "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, "   \
-  "%123, %124, %125, %126, %127}"
-#define S2L_D4(C, i) C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3])
-#define S2L_D16(C, i) S2L_D4(C, i), S2L_D4(C, i + 4), S2L_D4(C, i + 8), S2L_D4(C, i + 12)
-#define S2L_D128(C)                                                                          \
-  S2L_D16(C, 0), S2L_D16(C, 16), S2L_D16(C, 32), S2L_D16(C, 48), S2L_D16(C, 64),            \
-      S2L_D16(C, 80), S2L_D16(C, 96), S2L_D16(C, 112)
-
-// d (+)= A . B over 64 rows x 256 columns x 32 bytes of k; scale_d 0 starts
-// the sums afresh.  bf16: A K-major, B MN-major (transpose bit set)
-__device__ __forceinline__ void wgmma(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " S2L_REGS128
-      ", %128, %129, p, 1, 1, 0, 1;\n}\n"
-      : S2L_D128("+f")
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-// s8: both operands K-major
-__device__ __forceinline__ void wgmma(int (&d)[128], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " S2L_REGS128
-      ", %128, %129, p;\n}\n"
-      : S2L_D128("+r")
-      : "l"(da), "l"(db), "r"(scale_d));
-}
 
 __device__ __forceinline__ void store2(float* p, float x, float y) {
   __stcs(reinterpret_cast<float2*>(p), make_float2(x, y));
@@ -194,7 +108,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   using Acc = std::conditional_t<kS8, int, float>;
   constexpr int kKc = kS8 ? kRow : kRow / 2;  // k per chunk
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t raw = smem_addr(smem_raw);
   const uint32_t ring = (raw + 1023u) & ~1023u;
   const uint32_t full = ring + kRingBytes, empty = full + 8 * kStages;
   const int tiles = (a.n / kBn) * (a.m / kBm) * a.t;
@@ -327,51 +241,7 @@ const void* probe_fn() {
   return reinterpret_cast<const void*>(dot_probe_kernel<kS8>);
 }
 
-// ---- host: tensor maps and launches ----------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of the CUDA low-level API, looked up through the
-// runtime (no -lcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a 2-D map over rows of `inner` elements (`rows` of them, `pitch` bytes
-// apart), boxes of box_inner x box_rows, 128-byte swizzle
-int make_map(CUtensorMap* map, const void* base, bool s8, uint64_t inner, uint64_t rows,
-             uint64_t pitch, uint32_t box_inner, uint32_t box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorInitializationError;
-  const cuuint64_t dims[2] = {inner, rows};
-  const cuuint64_t strides[1] = {pitch};
-  const cuuint32_t box[2] = {box_inner, box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(
-      map, s8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-      const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
+// ---- host: launches ------------------------------------------------------
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
@@ -392,12 +262,14 @@ int check_shape(const void* lhs, const void* rhs, const void* out, int m, int k,
 template <bool kS8>
 int launch(const void* lhs, const void* rhs, void* out, int m, int k, int n, int g, int t,
            cudaStream_t stream) {
+  constexpr CUtensorMapDataType kType =
+      kS8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap lhs_map, rhs_map;
-  int err = kS8 ? make_map(&lhs_map, lhs, true, k, m, k, kRow, kBm)
-                : make_map(&lhs_map, lhs, false, k, m, 2ull * k, kRow / 2, kBm);
+  int err = kS8 ? make_map(&lhs_map, lhs, kType, k, m, k, kRow, kBm)
+                : make_map(&lhs_map, lhs, kType, k, m, 2ull * k, kRow / 2, kBm);
   if (err) return err;
-  err = kS8 ? make_map(&rhs_map, rhs, true, k, (uint64_t)g * n, k, kRow, kBn)
-            : make_map(&rhs_map, rhs, false, n, (uint64_t)g * k, 2ull * n, 64, kRow / 2);
+  err = kS8 ? make_map(&rhs_map, rhs, kType, k, (uint64_t)g * n, k, kRow, kBn)
+            : make_map(&rhs_map, rhs, kType, n, (uint64_t)g * k, 2ull * n, 64, kRow / 2);
   if (err) return err;
   cudaError_t e =
       cudaFuncSetAttribute(probe_fn<kS8>(), cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);

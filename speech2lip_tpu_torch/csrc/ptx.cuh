@@ -1,13 +1,20 @@
-// Inline-PTX building blocks for sm_80+ warp-level tensor-core kernels:
-// 16-byte asynchronous global->shared copies (cp.async.cg, zero-fill by
-// src-size 0), ldmatrix fragment loads and the bf16 m16n8k16 mma.sync with
-// float32 accumulate.  Fragment layouts are the PTX ISA's (mma.m16n8k16,
-// .row.col): A row-major 16x16 in four .b32 registers, B 16x8 in two,
-// C 16x8 float32 in four (rows lane/4 and lane/4 + 8, columns
-// 2 * (lane % 4) + {0, 1}).
+// Inline-PTX building blocks of the port's tensor-core kernels.
+//
+// sm_80+ warp level (K3-K6): 16-byte asynchronous global->shared copies
+// (cp.async.cg, zero-fill by src-size 0), ldmatrix fragment loads and the
+// bf16 m16n8k16 mma.sync with float32 accumulate.  Fragment layouts are
+// the PTX ISA's (mma.m16n8k16, .row.col): A row-major 16x16 in four .b32
+// registers, B 16x8 in two, C 16x8 float32 in four (rows lane/4 and
+// lane/4 + 8, columns 2 * (lane % 4) + {0, 1}).
+//
+// sm_90a warpgroup level (K1's bf16 body, K8): mbarriers, TMA tile loads
+// and the tensor maps they read, wgmma shared-memory descriptors of
+// 128-byte-swizzled operands, and the wgmma products with their fences.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace s2l {
@@ -131,6 +138,176 @@ __device__ __forceinline__ void zero_tile(int (&acc)[kTileFrags][8][4]) {
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[f][j][e] = 0;
+}
+
+// ---- Hopper (sm_90a): mbarriers, TMA, wgmma ------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+// until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// a 2-D box at (c0 innermost, c1) of the tensor map into shared memory at
+// dst, its bytes counted on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+// The threads' own shared-memory writes become visible to the async proxy
+// (wgmma, TMA) that reads them next.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+// Named barrier `id` (1..15; 0 is __syncthreads) over `count` threads.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand at addr,
+// with its leading and stride byte offsets, swizzle mode 1.  The swizzle
+// puts 16-byte unit u of a 128-byte row r at u ^ (r % 8); the pattern
+// repeats every 1 KB, so operand bases are 1 KB aligned.
+// - K-major (rows of 128 bytes of k): stride = 1024, the distance of
+//   8-row groups; lead unused (16).  A k step of 16 bf16 adds 32 bytes.
+// - MN-major (rows of 64 n, 128 bytes, one per k; transpose bit set in
+//   wgmma): lead = the distance of 64-column boxes, stride = 1024, the
+//   distance of 8-k groups.  A k step of 16 adds 2 KB.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lead, uint32_t stride) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lead >> 4) << 16) |
+         ((uint64_t)(stride >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous MMAs (empty asm that reads and writes the register)
+__device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void pin(int& r) { asm volatile("" : "+r"(r)::"memory"); }
+
+#define S2L_REGS128                                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "  \
+  "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "  \
+  "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "  \
+  "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "  \
+  "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "    \
+  "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, "   \
+  "%123, %124, %125, %126, %127}"
+#define S2L_D4(C, i) C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3])
+#define S2L_D16(C, i) S2L_D4(C, i), S2L_D4(C, i + 4), S2L_D4(C, i + 8), S2L_D4(C, i + 12)
+#define S2L_D128(C)                                                                          \
+  S2L_D16(C, 0), S2L_D16(C, 16), S2L_D16(C, 32), S2L_D16(C, 48), S2L_D16(C, 64),            \
+      S2L_D16(C, 80), S2L_D16(C, 96), S2L_D16(C, 112)
+
+// Accumulator fragments of m64nNk*: d[4j], d[4j + 1] are row 16 * warp +
+// lane / 4 of the warpgroup's 64, columns 8j + 2 (lane % 4) and one more;
+// d[4j + 2], d[4j + 3] the same columns of that row + 8.
+
+// d (+)= A . B over 64 rows x 256 columns x 16 bf16 of k; scale_d 0 starts
+// the sums afresh.  A K-major, B MN-major (transpose bit set)
+__device__ __forceinline__ void wgmma(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " S2L_REGS128
+      ", %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : S2L_D128("+f")
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+// s8 over 64 rows x 256 columns x 32 bytes of k: both operands K-major
+__device__ __forceinline__ void wgmma(int (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " S2L_REGS128
+      ", %128, %129, p;\n}\n"
+      : S2L_D128("+r")
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+// bf16 over 64 rows x 8 columns x 16 of k: both operands K-major
+__device__ __forceinline__ void wgmma(float (&d)[4], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, %4, %5, p, 1, 1, "
+      "0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+#undef S2L_REGS128
+#undef S2L_D4
+#undef S2L_D16
+#undef S2L_D128
+
+// ---- host: tensor maps -----------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of the CUDA low-level API, looked up through the
+// runtime (no -lcuda)
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-D map over rows of `inner` elements (`rows` of them, `pitch` bytes
+// apart), boxes of box_inner x box_rows, 128-byte swizzle; a box reaching
+// past the rows reads zeros there.  Returns a cudaError_t.
+inline int make_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, uint64_t inner,
+                    uint64_t rows, uint64_t pitch, uint32_t box_inner, uint32_t box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorInitializationError;
+  const cuuint64_t dims[2] = {inner, rows};
+  const cuuint64_t strides[1] = {pitch};
+  const cuuint32_t box[2] = {box_inner, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 }  // namespace s2l

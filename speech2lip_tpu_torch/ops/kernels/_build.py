@@ -34,6 +34,9 @@ SIGNATURES = {
     #  out, n, frames, depth, skip_layer, stream)
     "fused_mlp_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fused_mlp_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (bf16, regs*, local_bytes*, smem_bytes*): the K1 kernel's
+    # cudaFuncGetAttributes
+    "fused_mlp_attrs": [_I, _IP, _IP, _IP],
     # (args: the packed int64 words of window_sample.cu's Args, their
     #  count, stream)
     "window_sample_bf16": [_B, _I, _P],

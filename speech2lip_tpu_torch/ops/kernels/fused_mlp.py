@@ -1,11 +1,16 @@
 """K1: the fused lip-MLP trunk (``csrc/fused_mlp.cu``).
 
-Replaces ``speech2lip_tpu/ops/pallas/fused_mlp.py:fused_mlp_batched``: B
-frames over N shared uv embeddings through the 8-layer MLP-v2 trunk, the
-per-frame audio/time features folded into the entry and skip biases.  On
-the H100 the kernel keeps a 64-row tile's activations in shared memory
-across all layers and streams the L2-resident weights through a K-chunk
-buffer; it is bound by tensor-core issue and that weight stream.
+Replaces ``speech2lip_tpu/ops/pallas/fused_mlp.py:fused_mlp_batched`` (K1)
+and ``fused_mlp`` (K1b, one frame): B frames over N shared uv embeddings
+through the 8-layer MLP-v2 trunk, the per-frame audio/time features folded
+into the entry and skip biases.  On the H100 the bf16 kernel keeps a
+128-row tile's activations in shared memory across all layers, in the
+swizzled panels ``wgmma`` reads, and streams the L2-resident weights
+through a TMA ring: one producer warp, two ``wgmma`` consumer warpgroups,
+persistent blocks.  It is bound by the tensor cores, then by that weight
+stream.  The float32 kernel is 3xTF32 WMMA on 64-row tiles.
+``fused_mlp_attrs`` reports either kernel's registers, local memory and
+shared memory.
 """
 
 from __future__ import annotations
@@ -65,8 +70,9 @@ def fused_mlp(uv, b0, bs, w_uv, w_skip, trunk_w, trunk_b, w_out, b_out,
         if t.dtype != dt or t.device != uv.device or not t.is_contiguous():
             raise ValueError("fused_mlp: weights must be contiguous "
                              f"{dt} on {uv.device}")
-    if any(t.data_ptr() % 16 for t in weights):
-        raise ValueError("fused_mlp: weights must start 16-byte aligned")
+    if any(t.data_ptr() % 16 for t in weights) or uv.data_ptr() % 4:
+        raise ValueError("fused_mlp: weights must start 16-byte aligned, "
+                         "uv 4-byte aligned")
     for t in floats:
         if (t.dtype != torch.float32 or t.device != uv.device
                 or not t.is_contiguous()):
@@ -98,3 +104,13 @@ def fused_mlp(uv, b0, bs, w_uv, w_skip, trunk_w, trunk_b, w_out, b_out,
     _build.check(err, "fused_mlp")
     launches += 1
     return out
+
+
+def fused_mlp_attrs(dtype) -> dict:
+    """Registers per thread, local-memory bytes per thread and shared-memory
+    bytes per block of the K1 kernel for dtype (bfloat16 or float32), from
+    ``cudaFuncGetAttributes`` (builds the kernels; needs the CUDA
+    runtime)."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"fused_mlp_attrs: dtype {dtype}")
+    return _build.func_attrs("fused_mlp_attrs", int(dtype == torch.bfloat16))

@@ -48,9 +48,17 @@ def _rel_err(got, ref):
     return float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
 
 
+# (N, frames, graph): ragged N (100, 9601: no multiple of the 128-row
+# tile), frames 1, 3 and 8, the renderer's 9600 rows, K1b's 38,400 rows
+# (300 tiles, a ragged last wave on 132 SMs); graph: captured in a CUDA
+# graph and replayed (the tensor maps are kernel arguments)
+MLP_CASES = [(100, 3, False), (9600, 2, False), (9601, 1, False),
+             (9601, 8, False), (38400, 1, False), (9601, 3, True)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n,frames", [(100, 3), (9600, 2)])
-def test_fused_mlp_kernel(cuda, dtype, n, frames):
+@pytest.mark.parametrize("n,frames,graph", MLP_CASES)
+def test_fused_mlp_kernel(cuda, dtype, n, frames, graph):
     tp, _, _ = weights.random_params(0, device=cuda, dtype=dtype)
     g = torch.Generator(device=cuda).manual_seed(0)
     uv = fourier_embed(get_coords(n, 1, dtype=dtype, device=cuda), 10)
@@ -66,7 +74,22 @@ def test_fused_mlp_kernel(cuda, dtype, n, frames):
     got = kmlp.fused_mlp(*args)
     torch.cuda.synchronize()
     assert kmlp.launches == before + 1
+    assert got.shape == (frames, n, 3)
     assert _rel_err(got, kmlp.fused_mlp_plain(*args)) < BOUND[dtype]
+    if graph:
+        eager = got
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            kmlp.fused_mlp(*args)
+        torch.cuda.current_stream().wait_stream(side)
+        cuda_graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(cuda_graph):
+            replayed = kmlp.fused_mlp(*args)
+        replayed.zero_()
+        cuda_graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, eager)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -356,18 +379,21 @@ def test_double_conv_kernel_tile_edges(cuda, dtype, cin, cmid, cout, edge,
     assert _rel_err(got, kch.double_conv_hcw_plain(*args)) < BOUND[dtype]
 
 
-@pytest.mark.parametrize("kernel", ["double_conv", "conv3x3", "dot_probe"])
+@pytest.mark.parametrize("kernel", ["double_conv", "conv3x3", "dot_probe",
+                                    "fused_mlp"])
 def test_bf16_kernels_have_no_local_memory(cuda, kernel):
     """Every bf16 instance of K5 (Cmid, Cout in {64, 128}) and of the conv
-    kernel behind K3/K4/K6 (Cout 64, 128, 256), and K8's bf16 and int8
-    dot kernels, keep their accumulators in registers: no spills, no local
-    memory."""
+    kernel behind K3/K4/K6 (Cout 64, 128, 256), K8's bf16 and int8 dot
+    kernels and K1's bf16 kernel keep their accumulators in registers: no
+    spills, no local memory."""
     if kernel == "double_conv":
         insts = [kch.double_conv_attrs(torch.bfloat16, cmid, cout)
                  for cmid in (64, 128) for cout in (64, 128)]
     elif kernel == "dot_probe":
         insts = [kdp.dot_probe_attrs(dt) for dt in (torch.bfloat16,
                                                     torch.int8)]
+    elif kernel == "fused_mlp":
+        insts = [kmlp.fused_mlp_attrs(torch.bfloat16)]
     else:
         insts = [kfb.conv3x3_attrs(torch.bfloat16, cout)
                  for cout in (64, 128, 256)]
@@ -673,6 +699,16 @@ def test_wrappers_raise_on_bad_input(cuda):
     with pytest.raises(ValueError):
         khs.hat_sample_dsrc(grid, torch.zeros(1, 6, 3, device=cuda), 4, 4,
                             0, 0, 8, 8)
+    # K1: uv starting 2 bytes past a 4-byte boundary (the bf16 kernel
+    # loads its rows a word at a time)
+    tp, _, _ = weights.random_params(0, device=cuda, dtype=torch.bfloat16)
+    uv = torch.zeros(5 * 42 + 1, device=cuda, dtype=torch.bfloat16)[1:]
+    b = torch.zeros(1, 256, device=cuda)
+    with pytest.raises(ValueError):
+        kmlp.fused_mlp(uv.view(5, 42), b, b, tp["fc_uv"]["w"],
+                       tp["fc_uv_skip"]["w"], [l["w"] for l in tp["trunk"]],
+                       [l["b"].float() for l in tp["trunk"]],
+                       tp["output"]["w"], tp["output"]["b"].float())
 
 
 # (M, K, N, G, T): the probe's shape, then T 1 and 3, G 1 and 8, N one and

@@ -94,6 +94,81 @@ def test_fused_mlp_plain_matches_jax_trunk():
     assert _err(kmlp.fused_mlp_plain(*args), ref) < 2e-5
 
 
+def _mlp_params(seed, skip_layer=4, depth=8):
+    """The trunk's parameter tree (fc_uv, fc_uv_skip, trunk, output), drawn
+    with numpy at roughly the model's init scales."""
+    rng = np.random.default_rng(seed)
+
+    def dense(k, n):
+        return {"w": (rng.standard_normal((k, n)) * np.sqrt(2.0 / k)
+                      ).astype(np.float32),
+                "b": rng.uniform(-0.1, 0.1, n).astype(np.float32)}
+
+    return {"fc_uv": dense(42, 256), "fc_uv_skip": dense(42, 256),
+            "trunk": [dense(512 if i == skip_layer + 1 else 256, 256)
+                      for i in range(depth)],
+            "output": dense(256, 3)}
+
+
+# (TPU kernel, N, frames, tile): K1 at a ragged N and at a tile multiple,
+# K1b (one frame) ragged; tile 128 is the port's row tile
+PALLAS_CASES = [("batched", 300, 2, 128), ("batched", 256, 3, 128),
+                ("single", 200, 1, 128)]
+# relative to max(1, max|ref|).  float32: bias folding and summation order
+# differ over 9 layers (the XLA-trunk test's bound; measured <= 8.6e-7).
+# bf16: the TPU kernel casts uv to float32 and keeps float32 activations
+# between layers, the port rounds each layer to bf16 (measured <= 1.1e-2
+# over these cases; the bound is ~3x that)
+PALLAS_BOUND = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel,n,frames,tile", PALLAS_CASES)
+def test_fused_mlp_plain_matches_pallas_kernel(kernel, n, frames, tile,
+                                               dtype):
+    """K1 / K1b's plain version against the TPU kernels themselves,
+    ``fused_mlp_batched`` and ``fused_mlp``, in Pallas interpret mode on
+    the same numpy-seeded weights and inputs (in dtype)."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    import speech2lip_tpu.ops.pallas.fused_mlp as jmlp
+
+    tdt = dtype
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    params = _mlp_params(n)
+    rng = np.random.default_rng(n + 1)
+    uv = rng.uniform(-1, 1, (n, 42)).astype(np.float32)
+    base = rng.standard_normal((frames, 256)).astype(np.float32)
+    skip = rng.standard_normal((frames, 256)).astype(np.float32)
+    # both sides see the same dtype-rounded weights and uv; biases float32
+    cast = lambda a: np.asarray(jnp.asarray(a, jdt).astype(jnp.float32))
+    jp = jax.tree.map(lambda a: jnp.asarray(a, jdt), params)
+    for leaf in ([jp["fc_uv"], jp["fc_uv_skip"], jp["output"]]
+                 + jp["trunk"]):
+        leaf["b"] = leaf["b"].astype(jnp.float32)
+    uv_j = jnp.asarray(uv, jdt)
+    with pltpu.force_tpu_interpret_mode():
+        if kernel == "batched":
+            ref = jmlp.fused_mlp_batched(jp, uv_j, jnp.asarray(base),
+                                         jnp.asarray(skip), tile=tile)
+        else:
+            ref = jmlp.fused_mlp(jp, uv_j, jnp.asarray(base[0]),
+                                 jnp.asarray(skip[0]), tile=tile)[None]
+    t = lambda a: torch.from_numpy(np.array(cast(a))).to(tdt)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    trunk = params["trunk"]
+    got = kmlp.fused_mlp_plain(
+        t(uv), f(params["fc_uv"]["b"] + base),
+        f(params["fc_uv_skip"]["b"] + skip), t(params["fc_uv"]["w"]),
+        t(params["fc_uv_skip"]["w"]), [t(l["w"]) for l in trunk],
+        [f(l["b"]) for l in trunk], t(params["output"]["w"]),
+        f(params["output"]["b"]))
+    ref = np.asarray(ref, np.float32)
+    assert got.shape == ref.shape == (frames, n, 3)
+    scale = max(1.0, float(np.abs(ref).max()))
+    assert _err(got, ref) / scale < PALLAS_BOUND[dtype]
+
+
 @pytest.mark.parametrize("use_kernels", [False, True])
 def test_render_pixels_matches_jax(use_kernels):
     """K1b: one frame's pixels, the 4-offset ensemble folded into the rows
