@@ -20,6 +20,13 @@ made from a seed:
   (K2 forward, K7 hat_sample_dsrc / hat_sample_dgrid backward), one step
   against the plain path, a float32 step on a small input, and one
   sync-stage step (SyncNet loss, frozen U-Net) at batch 2;
+- the user's loop on a learnable identity written at May geometry (48
+  frames, val 8): cli/train in bfloat16 at batch 8 to iteration 6 across
+  the sync staging boundary (iteration 3), resumed to 8 (K2 and K7 per
+  step, K1 in validation), a bit-exact restore of its checkpoint, then
+  cli/infer rendering the val split from it (K1, K2 and K3 a batch), one
+  batch against the plain path; fit's ms per iteration (batch build and
+  step) and cli/infer's frames/s;
 - the dot probe's tool (speech2lip_tpu_torch.tools.bench_int8_dot) at its
   full shape and its own count of calls: one warm-up and ITERS timed K8
   dot_probe calls in bf16 and in int8, its outputs against the plain
@@ -250,6 +257,11 @@ def profile_steps(run, what: str, step_ms: float, steps: int = 2):
     log(f"# profile {what}: device time {total:.2f} ms per step over "
         f"{launches // steps} kernel launches, against {step_ms:.2f} ms "
         f"wall: busy {100 * total / step_ms:.1f}%")
+    if total == 0:
+        # the profiler can drop a short run's activity records; this log
+        # is no count (graph_launches counts a call's launches exactly)
+        log(f"# profile {what}: no device activity recorded")
+        return total, 0
     for name, ms in groups.items():
         log(f"# profile   {name}: {ms:.2f} ms ({100 * ms / total:.1f}%)")
     for key, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
@@ -332,6 +344,259 @@ def train_inputs(dev, b, face, lip_h, lip_w, with_sync=False):
     if with_sync:
         frozen["syncnet"] = weights.random_syncnet(SEED + 2, device=dev)
     return batch, geo, window, params, frozen
+
+
+# the user's loop: a learnable identity at May geometry, trained through
+# cli/train (resumed once, across the sync staging boundary), then
+# rendered through cli/infer from its checkpoint
+LOOP_FRAMES, LOOP_ITERS = 48, (6, 8)
+LOOP_TRAINING = {"compute_dtype": "bfloat16", "batch_size": TRAIN_B,
+                 "pallas_gather": "auto", "use_syncloss": True,
+                 "sync_start_iter": 3, "print_every": 1,
+                 "checkpoint_every": 2, "backup_every": 4,
+                 "validate_every": 4, "visualize_every": 4}
+
+
+def loop_launches(tr: dict, its, val_frames: int) -> dict:
+    """Launches ``fit`` makes over iterations ``its``: K2 / dsrc / dgrid
+    per step (stage 1: the window gather and the depth-loss points; the
+    sync stage adds the T-frame window gather), K1 once per frame that
+    validation and visualisation render, no K3."""
+    n = {"window_sample": 0, "hat_sample_dsrc": 0, "hat_sample_dgrid": 0,
+         "fused_mlp": 0, "fused_block": 0}
+    for it in its:
+        sync = it > tr["sync_start_iter"]
+        n["window_sample"] += 3 if sync else 2
+        n["hat_sample_dsrc"] += 2 if sync else 1
+        n["hat_sample_dgrid"] += 1
+        if it % tr["validate_every"] == 0:
+            n["fused_mlp"] += val_frames
+        if it % tr["visualize_every"] == 0:
+            n["fused_mlp"] += 1
+    return n
+
+
+def user_loop(dev, card: str) -> dict:
+    """cli/train twice (to LOOP_ITERS[0], then resumed to LOOP_ITERS[1])
+    and cli/infer on a ``make_learnable_tree`` at May geometry, in a
+    temporary directory.  Checks the launches of each run, finite losses,
+    the files, a bit-exact restore and the rendered frames; returns the
+    launches by path and the timings."""
+    import os
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from speech2lip_tpu_torch.cli import infer as cli_infer
+    from speech2lip_tpu_torch.cli import train as cli_train
+    from speech2lip_tpu_torch.config import load_config, save_config
+    from speech2lip_tpu_torch.core.checkpoint import (CheckpointManager,
+                                                      flatten_paths, load)
+    from speech2lip_tpu_torch.data import image_io
+    from speech2lip_tpu_torch.data.dataset import LipDataset, stack_batch
+    from speech2lip_tpu_torch.data.synthetic import (make_learnable_tree,
+                                                     synthetic_config)
+    from speech2lip_tpu_torch.infer.renderer import (Renderer,
+                                                     render_face_batch,
+                                                     render_lip_batch)
+    from speech2lip_tpu_torch.ops.kernels import fused_block as kfb
+    from speech2lip_tpu_torch.ops.kernels import fused_mlp as kmlp
+    from speech2lip_tpu_torch.ops.kernels import hat_sample as khs
+    from speech2lip_tpu_torch.ops.kernels import window_sample as kws
+    from speech2lip_tpu_torch.train import train_step as ts
+    from speech2lip_tpu_torch.train.trainer import (init_params, to_device,
+                                                    warp_window)
+
+    def reset():
+        kmlp.launches = kws.launches = kfb.launches = 0
+        khs.dsrc_launches = khs.dgrid_launches = 0
+
+    def counts():
+        return {"window_sample": kws.launches,
+                "hat_sample_dsrc": khs.dsrc_launches,
+                "hat_sample_dgrid": khs.dgrid_launches,
+                "fused_mlp": kmlp.launches, "fused_block": kfb.launches}
+
+    out = {"fit": {}, "cli_infer": {}}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root = os.path.join(tmp, "identity")
+        geo = make_learnable_tree(root, n_frames=LOOP_FRAMES, face=FACE,
+                                  lip_h=LIP_H, lip_w=LIP_W, seed=SEED)
+        cfg = synthetic_config(root, geo)
+        cfg["training"].update(LOOP_TRAINING,
+                               out_dir=os.path.join(tmp, "run"))
+        path = os.path.join(tmp, "identity.yaml")
+        save_config(path, cfg)
+        require(load_config(path) == cfg, "the written config reads back "
+                "as another")
+        log(f"# user loop: learnable tree {LOOP_FRAMES} frames at face "
+            f"{FACE}, lip {LIP_H}x{LIP_W} written in "
+            f"{time.perf_counter() - t0:.1f} s; config:\n" + "".join(
+                f"#   {line}\n" for line in open(path).read().splitlines()))
+        tr = cfg["training"]
+        val_frames = cfg["data"]["val_split_frames"]
+        run_dir = tr["out_dir"]
+        first = 0
+        runs = []   # the train records of each run
+        metrics = os.path.join(run_dir, "metrics.jsonl")
+        for n in LOOP_ITERS:
+            if first:
+                resume = CheckpointManager(run_dir).latest_step_file()
+                first = load(resume)[1]["it"]
+                log(f"# user loop: cli/train resumes from "
+                    f"{os.path.basename(resume)} at it={first} (the highest "
+                    f"model_<it>.ckpt, as the JAX trainer picks)")
+            reset()
+            t1 = time.perf_counter()
+            state = cli_train.main([path, "--max-iters", str(n)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            got, want = counts(), loop_launches(tr, range(first + 1, n + 1),
+                                                val_frames)
+            log(f"# user loop: cli/train it {first + 1}..{n} in {wall:.1f} "
+                f"s; launches {got} (expected {want})")
+            recs = [json.loads(line) for line in open(metrics)]
+            runs.append([r for r in recs if "train/loss" in r][
+                sum(len(r) for r in runs):])
+            require(state.it == n and [r["it"] for r in runs[-1]]
+                    == list(range(first + 1, n + 1)),
+                    f"cli/train stopped at it={state.it}, printed its "
+                    f"{[r['it'] for r in runs[-1]]}")
+            require(got == want, f"cli/train launches {got}, expected {want}")
+            for k, v in got.items():
+                out["fit"][k] = out["fit"].get(k, 0) + v
+            first = n
+        train = runs[0] + runs[1]
+        require(all(np.isfinite(r["train/loss"]) for r in train)
+                and any("train/loss_sync" in r for r in train)
+                and any("val/psnr" in r for r in recs),
+                "train metrics: non-finite, or no sync loss or validation")
+        files = set(os.listdir(run_dir))
+        want_files = {"model.ckpt", "model_4.ckpt", "model_8.ckpt",
+                      "model_best.ckpt", "metrics.jsonl", "train.log",
+                      "tensorboard", "images"}
+        require(want_files <= files, f"run files {sorted(files)}")
+        # the final state restores bit-exactly from model.ckpt: the file
+        # holds every key of the state and no other, and a template of NaN
+        # (-1 for integers) takes every leaf from it, since the tolerant
+        # load keeps a template leaf whose key is missing
+        live = ts.state_to_tree(state)
+        keys = set(load(os.path.join(run_dir, "model.ckpt"))[0])
+        want_keys = {k for k, _ in flatten_paths(live)}
+        require(keys == want_keys, f"model.ckpt keys: missing "
+                f"{sorted(want_keys - keys)[:5]}, extra "
+                f"{sorted(keys - want_keys)[:5]}")
+        blank = ts.tree_map(
+            lambda x: (torch.full_like(x, float("nan"))
+                       if x.is_floating_point() else torch.full_like(x, -1))
+            if isinstance(x, torch.Tensor) else -1, live)
+        tree, sc = CheckpointManager(run_dir).restore(blank, "model.ckpt")
+        pairs = list(zip(ts.tree_leaves(live), ts.tree_leaves(tree)))
+        same = all(torch.equal(a, b) if isinstance(a, torch.Tensor)
+                   else a == b for a, b in pairs)
+        require(same and sc["it"] == state.it and len(pairs) == len(keys),
+                "model.ckpt does not restore the final state bit-exactly")
+        log(f"# user loop: model.ckpt holds the state's {len(keys)} keys "
+            f"and restores all {len(pairs)} leaves bit-exactly")
+
+        # validation's K1 call, one frame at May geometry in float32 (as
+        # evaluate_psnr and visualize render it), against the plain MLP
+        vds = LipDataset(root, "val", cfg)
+        s = vds.load_frame(0)
+        audio = torch.from_numpy(s["audio"])[None].to(dev)
+        t = torch.tensor([float(s["index"])], device=dev)
+        with torch.no_grad():
+            lip = {use: render_lip_batch(state.params, audio, t, LIP_H, LIP_W,
+                                         use_kernels=use) for use in (True,
+                                                                     False)}
+        out["val_frame_err"] = check("fit validation frame, K1 f32 one "
+                                     "frame", [(lip[True], lip[False])],
+                                     BOUND[torch.float32])
+        # steady iterations: stage 1 after the first run's first step, the
+        # sync stage after the resumed run's first step
+        stages = {"stage 1": [r for r in runs[0][1:]
+                              if r["it"] <= tr["sync_start_iter"]],
+                  "sync": runs[1][1:]}
+        for name, rs in stages.items():
+            b = statistics.median(r["train/batch_ms"] for r in rs)
+            st_ms = statistics.median(r["train/step_ms"] for r in rs)
+            out[f"fit_{name}"] = {"batch_ms": b, "step_ms": st_ms,
+                                  "iters": [r["it"] for r in rs]}
+            log(f"# user loop: fit {name} bf16 batch {TRAIN_B}, median of "
+                f"its {[r['it'] for r in rs]}: {b + st_ms:.1f} ms/iteration "
+                f"= batch build {b:.1f} ms + step {st_ms:.1f} ms on {card} "
+                "(checkpoints, validation and visualisation excluded)")
+        # each run's wall time an iteration, everything between two printed
+        # iterations included: the gaps of the records' clocks
+        for i, rs in enumerate(runs):
+            gaps = [1e3 * (b["t"] - a["t"]) for a, b in zip(rs, rs[1:])]
+            out[f"fit_run{i}_wall_ms"] = gaps
+            log(f"# user loop: fit run {i} wall ms an iteration, its "
+                f"{[r['it'] for r in rs[1:]]}: "
+                f"{', '.join(f'{g:.1f}' for g in gaps)} (mean "
+                f"{statistics.mean(gaps):.1f}) on {card}")
+
+        # cli/infer renders the val split from the checkpoint, twice (the
+        # second call is timed), in bf16 on the card
+        os.chdir(tmp)
+        try:
+            for i in range(2):
+                reset()
+                res = cli_infer.main([path, "--output_dir", "smoke",
+                                      "--batch", str(TRAIN_B)])
+                got = counts()
+                log(f"# user loop: cli/infer call {i}: {res['frames']} "
+                    f"frames from it={res['it']} in {res['seconds']:.3f} s "
+                    f"= {res['frames'] / res['seconds']:.1f} frames/s "
+                    f"(render {res['frames'] / res['render_seconds']:.1f} "
+                    f"frames/s); launches {got} on {card}")
+                n_batches = -(-val_frames // TRAIN_B)
+                want = {"window_sample": n_batches, "hat_sample_dsrc": 0,
+                        "hat_sample_dgrid": 0, "fused_mlp": n_batches,
+                        "fused_block": 5 * n_batches}
+                require(got == want, f"cli/infer launches {got}, "
+                        f"expected {want}")
+            frames = sorted(os.listdir(res["out_dir"]))
+            require(len(frames) == val_frames == res["frames"]
+                    and res["compute_dtype"] == "bfloat16",
+                    f"cli/infer wrote {len(frames)} frames, "
+                    f"{res['compute_dtype']}")
+            img = image_io.imread_float(os.path.join(res["out_dir"],
+                                                     frames[0]))
+            require(img.shape == (FACE, FACE, 3), f"frame {img.shape}")
+        finally:
+            os.chdir(cwd)
+        out["cli_infer"] = got
+        out["cli_infer_fps"] = res["frames"] / res["seconds"]
+        out["cli_infer_render_fps"] = res["frames"] / res["render_seconds"]
+
+        # one batch of the served checkpoint against the plain path
+        scfg = load_config(path)
+        scfg["model"]["compute_dtype"] = "bfloat16"
+        ds = LipDataset(root, "val", scfg)
+        p, up, us = init_params(scfg, ds, device=dev)
+        st, _ = CheckpointManager(run_dir).restore(
+            {"params": p, "unet_params": up, "unet_state": us})
+        win = warp_window(scfg, ds)
+        rnd = Renderer(scfg, st["params"], st["unet_params"],
+                       st["unet_state"], device=dev, window=win)
+        host = stack_batch([ds.load_frame(i) for i in range(TRAIN_B)])
+        batch = to_device(host, dev)
+        got = rnd(batch, ds.lefttop_x, ds.lefttop_y)["face"]
+        ref = render_face_batch(
+            *rnd.params, batch, lip_x=ds.lefttop_x, lip_y=ds.lefttop_y,
+            lip_h=LIP_H, lip_w=LIP_W, use_kernels=False,
+            compute_dtype=torch.bfloat16, window=win)["face"]
+        e = float((got - ref).abs().max())
+        log(f"# user loop: served checkpoint, one batch of 8, kernels vs "
+            f"plain path face max|diff| {e:.3g} (bound {SLICE_BF16_BOUND})")
+        require(e <= SLICE_BF16_BOUND and bool(torch.isfinite(got).all()),
+                "the served checkpoint's face disagrees with the plain path")
+        out["cli_infer_err"] = e
+    return out
 
 
 def main() -> int:
@@ -925,6 +1190,23 @@ def main() -> int:
         ts.tree_leaves(ynew.unet_params), ts.tree_leaves(ystate.unet_params))),
         "the frozen U-Net moved")
 
+    # the sync stage as fit runs it at batch 8: the U-Net training, the
+    # B*T-frame window gather on K2 and dsrc, against the plain path
+    zb, zgeo, zwin, zparams, zfrozen = train_inputs(
+        dev, TRAIN_B, FACE, LIP_H, LIP_W, with_sync=True)
+    zst = dataclasses.replace(
+        st, lip_x=zgeo["lip_x"], lip_y=zgeo["lip_y"], window=zwin,
+        sync_on=True, postnet_frozen=False)
+    sync_err = compare_paths(zst, zparams, zfrozen, zb,
+                             TRAIN_BOUND[torch.bfloat16],
+                             f"sync bf16 B={TRAIN_B} "
+                             f"({TRAIN_B * zb['audio_window'].shape[1]} "
+                             "frames), U-Net training")
+    del zb, zparams, zfrozen
+
+    # -- phase 6: the user's loop, cli/train then cli/infer ----------------
+    loop = user_loop(dev, card)
+
     # -- phase 3e: the dot probe's tool at its full shape -----------------
     # kdp.launches counts dot_probe calls that reached the card; an int8
     # call launches two kernels, the re-layout of rhs and then the dot
@@ -1329,10 +1611,14 @@ def main() -> int:
              "apply_infer_dconv"),
             ("conv3x3_infer", "fused_block.cu", "conv_block.py:63",
              "apply_infer_pallas")):
+        by_path = {p: loop[p][name] for p in ("fit", "cli_infer")
+                   if loop[p].get(name)}
         kernels.append({"name": name, "route": "cuda",
                         "source": f"speech2lip_tpu_torch/csrc/{source}",
                         "replaces": pallas + replaces, "path": path,
                         "launches": launches[name],
+                        "launches_by_path": dict({path: launches[name]},
+                                                 **by_path),
                         "max_abs_err": errs[(name, bf)], **rows[name]})
     for dn in ("bf16", "int8"):
         kernels.append({"name": f"dot_probe_{dn}", "route": "cuda",
@@ -1343,7 +1629,24 @@ def main() -> int:
                         "max_abs_err": k8_err[dn], **rows[f"dot_probe_{dn}"]})
     require(len(kernels) == 11 and all(k["launches"] > 0 for k in kernels),
             "a kernel was not launched on its path")
-    log(f"# train bf16 kernel vs plain path worst rel {train_err:.3g}")
+    log(f"# train bf16 kernel vs plain path worst rel {train_err:.3g}; "
+        f"sync stage (U-Net training) {sync_err:.3g}; fit's validation "
+        f"frame (K1 f32) max|diff| {loop['val_frame_err']:.3g}")
+    for name in ("stage 1", "sync"):
+        f = loop[f"fit_{name}"]
+        log(f"# fit {name} bf16 batch {TRAIN_B} at May geometry: "
+            f"{f['batch_ms'] + f['step_ms']:.1f} ms/iteration = batch build "
+            f"{f['batch_ms']:.1f} ms + step {f['step_ms']:.1f} ms "
+            f"(median of its {f['iters']}; checkpoints and validation "
+            f"excluded) on {card}")
+    for i in range(len(LOOP_ITERS)):
+        g = loop[f"fit_run{i}_wall_ms"]
+        log(f"# fit run {i} wall ms/iteration, all included: mean "
+            f"{sum(g) / len(g):.1f} over {len(g)} gaps, max {max(g):.1f} "
+            f"on {card}")
+    log(f"# cli/infer bf16 batch {TRAIN_B}: {loop['cli_infer_fps']:.1f} "
+        f"frames/s end to end, render {loop['cli_infer_render_fps']:.1f} "
+        f"frames/s on {card}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

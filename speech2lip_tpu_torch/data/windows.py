@@ -1,5 +1,5 @@
 """Host-side warp-window computation (counterpart of
-``speech2lip_tpu/data/windows.py:compute_warp_window``).
+``speech2lip_tpu/data/windows.py``).
 
 numpy only.  Scans coord grids once to find the minimal observed-space
 window whose backward warp can touch the expanded lip rectangle: the
@@ -7,6 +7,9 @@ validation behind the composite's static-window fast path.
 """
 
 from __future__ import annotations
+
+import json
+import os
 
 from typing import Iterable, Optional, Tuple
 
@@ -56,3 +59,47 @@ def compute_warp_window(coords: Iterable[np.ndarray],
     return _round_window(y_min - margin, x_min - margin,
                          y_max + 1 + margin, x_max + 1 + margin,
                          height, width, align)
+
+
+def cached_warp_window(root: str, box: Tuple[int, int, int, int],
+                       height: int, width: int, coords_iter_factory,
+                       margin: int = 8) -> Optional[Tuple[int, int, int, int]]:
+    """Compute-or-load the dataset's warp window, memoised at
+    ``<root>/warp_window.json`` and keyed by the box, the geometry and the
+    margin (the same file and key as the JAX package's).  The key has no
+    field for the scan's protocol, so a file left by another scan of the
+    same geometry is taken as it is (ROADMAP C)."""
+    path = os.path.join(root, "warp_window.json")
+    key = {"box": list(box), "h": height, "w": width, "margin": margin}
+    if os.path.exists(path):
+        try:
+            with open(path) as f:
+                rec = json.load(f)
+            if rec.get("key") == key:
+                win = rec.get("window")
+                return tuple(win) if win is not None else None
+        except (ValueError, KeyError):
+            pass
+    win = compute_warp_window(coords_iter_factory(), box, height, width,
+                              margin=margin)
+    try:
+        with open(path, "w") as f:
+            json.dump({"key": key,
+                       "window": list(win) if win else None}, f)
+    except OSError:
+        pass
+    return win
+
+
+def validate_window(coords: Iterable[np.ndarray],
+                    box: Tuple[int, int, int, int],
+                    window: Tuple[int, int, int, int],
+                    height: int, width: int) -> bool:
+    """True iff ``window`` covers every pixel that can touch ``box``."""
+    need = compute_warp_window(coords, box, height, width, margin=0, align=1)
+    if need is None:
+        return True
+    y0, x0, wh, ww = window
+    ny0, nx0, nh, nw = need
+    return (y0 <= ny0 and x0 <= nx0
+            and y0 + wh >= ny0 + nh and x0 + ww >= nx0 + nw)

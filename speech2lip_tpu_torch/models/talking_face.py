@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from speech2lip_tpu_torch.ops import nn as tnn
@@ -24,6 +25,21 @@ from speech2lip_tpu_torch.ops.kernels.window_sample import window_sample
 
 AUDIO_CODE_DIM = 64
 TIME_DIM = 20
+
+
+def prepare_canonical_depth_init(depth_npy, head_mask) -> np.ndarray:
+    """The canonical depth's initial value: the raw z-buffer depth [H, W]
+    (0 = hole) with its holes filled by the mean of the valid depths, then
+    zeroed outside the head mask [H, W]; valid depths are kept as they
+    are.  float32 numpy."""
+    d = np.asarray(depth_npy, np.float32)
+    mask = (np.asarray(head_mask) > 0).astype(np.float32)
+    pos = d > 0
+    mean_val = np.float32(np.sum(np.where(pos, d, np.float32(0.0)),
+                                 dtype=np.float32)
+                          / max(np.float32(pos.sum()), np.float32(1.0)))
+    filled = np.where(pos, d, mean_val) * mask
+    return np.where(pos, d, filled).astype(np.float32)
 
 
 def encode_audio(params, audio: torch.Tensor) -> torch.Tensor:

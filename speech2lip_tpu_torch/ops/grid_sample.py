@@ -2,11 +2,13 @@
 
 Semantics are torch's ``grid_sample`` with ``align_corners=False``; images
 are NHWC and grids carry (x, y) in [-1, 1] in the last axis.  Everything
-here is plain autograd-differentiable PyTorch.
+here but ``grid_sample_np`` (numpy, for the host) is plain
+autograd-differentiable PyTorch.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -126,3 +128,39 @@ def warp_box_mask(grid: torch.Tensor, box, height: int, width: int,
     if binarize:
         val = (val != 0).to(grid.dtype)
     return val[..., None]
+
+
+def grid_sample_np(img, grid):
+    """numpy copy of ``grid_sample`` (zeros padding), op for op as the
+    JAX package's ``grid_sample_np``, so float32 results are bit-identical
+    to the JAX device op.  The dataset precomputes the black-hole
+    augmentation's static warps with it on the host.
+
+    img [B, H, W, C] float32; grid [B, Hg, Wg, 2].  Returns [B, Hg, Wg, C].
+    """
+    b, h, w, c = img.shape
+    ix = ((grid[..., 0] + 1.0) * np.float32(w) - 1.0) * np.float32(0.5)
+    iy = ((grid[..., 1] + 1.0) * np.float32(h) - 1.0) * np.float32(0.5)
+    x0 = np.floor(ix)
+    y0 = np.floor(iy)
+    wx = (ix - x0)[..., None].astype(img.dtype)
+    wy = (iy - y0)[..., None].astype(img.dtype)
+    x0i = x0.astype(np.int32)
+    y0i = y0.astype(np.int32)
+    img_flat = img.reshape(b, h * w, c)
+    bidx = np.arange(b)[:, None]
+
+    def gather(yi, xi):
+        valid = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+        idx = (np.clip(yi, 0, h - 1) * w + np.clip(xi, 0, w - 1)).reshape(
+            b, -1)
+        vals = img_flat[bidx, idx].reshape(*yi.shape, c)
+        return vals * valid[..., None].astype(img.dtype)
+
+    v00 = gather(y0i, x0i)
+    v01 = gather(y0i, x0i + 1)
+    v10 = gather(y0i + 1, x0i)
+    v11 = gather(y0i + 1, x0i + 1)
+    top = v00 * (1.0 - wx) + v01 * wx
+    bot = v10 * (1.0 - wx) + v11 * wx
+    return top * (1.0 - wy) + bot * wy

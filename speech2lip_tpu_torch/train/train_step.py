@@ -1,5 +1,6 @@
 """The training step (counterpart of ``speech2lip_tpu/train/train_step.py``):
-stage 1 and the sync stage, with Adam.
+stage 1 and the sync stage, with Adam, and the per-ray-chunk step of the
+photometric-only regime (``make_chunked_train_step``).
 
 The step renders the lip crop with the 4-offset local ensemble, composites
 it into the observed face with the black-hole augmentation, runs the
@@ -91,6 +92,35 @@ class StepStatics:
     # with pallas_gather: K2/K7 launch their CUDA kernels on CUDA tensors;
     # False runs their plain versions on any device (the plain path)
     use_kernels: bool = True
+
+
+def state_to_tree(state: TrainState, chunked: bool = False) -> Dict[str, Any]:
+    """``state`` laid out as the JAX package's ``TrainState`` flattens:
+    params / unet_params / unet_state / it, and the optimizer state as
+    ``optax.adam(schedule)``'s chain, ``opt_state/0/{count, mu, nu}`` (the
+    moments in the trainable tree's structure: {"model": params, "unet":
+    unet_params}, or params alone when ``chunked``) and
+    ``opt_state/1/count`` (the schedule's step count, Adam's count).  The
+    checkpoints of either package hold these keys."""
+    trainable = (state.params if chunked
+                 else {"model": state.params, "unet": state.unet_params})
+    o = state.opt_state
+    return {"params": state.params, "unet_params": state.unet_params,
+            "unet_state": state.unet_state,
+            "opt_state": [{"count": o["count"],
+                           "mu": tree_unflatten(trainable, o["mu"]),
+                           "nu": tree_unflatten(trainable, o["nu"])},
+                          {"count": o["count"]}],
+            "it": state.it}
+
+
+def state_from_tree(tree: Dict[str, Any]) -> TrainState:
+    """The inverse of ``state_to_tree``."""
+    adam = tree["opt_state"][0]
+    return TrainState(tree["params"], tree["unet_params"], tree["unet_state"],
+                      {"count": int(adam["count"]),
+                       "mu": tree_leaves(adam["mu"]),
+                       "nu": tree_leaves(adam["nu"])}, int(tree["it"]))
 
 
 # -- parameter trees (nested dicts / lists of tensors) -----------------------
@@ -497,5 +527,72 @@ def make_train_step(optimizer: Adam, st: StepStatics, frozen):
         new_state = TrainState(new["model"], new["unet"], new_unet_state,
                                new_opt, state.it + 1)
         return new_state, metrics
+
+    return step
+
+
+def draw_chunk_noise(n_chunks: int, batch_size: int, device=None,
+                     generator: Optional[torch.Generator] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """The chunked step's draws: ``eps_u`` uniform [n_chunks, B], one
+    ensemble shift per frame and chunk."""
+    return {"eps_u": torch.rand(n_chunks, batch_size, device=device,
+                                generator=generator)}
+
+
+def make_chunked_train_step(optimizer: Adam, st: StepStatics, n_chunks: int):
+    """Per-ray-chunk stepping: each frame's H*W pixels split into
+    ``n_chunks`` chunks, with one Adam step over ``params`` per chunk, in
+    order.  ``step(state, batch, draws) -> (new_state, metrics)``, draws
+    from ``draw_chunk_noise``.
+
+    This regime carries the lip photometric loss only (the caller rejects
+    the other loss flags), in float32; the U-Net and its state pass
+    through unchanged.  Metrics: ``loss`` = ``loss_rgb``, the mean of the
+    chunk losses, and ``psnr``."""
+    n = st.lip_h * st.lip_w
+    if n % n_chunks:
+        raise ValueError(f"{n_chunks} chunks must divide H*W={n}")
+    chunk = n // n_chunks
+
+    def chunk_loss(p, batch, t_idx, csl, tgt, eps_u):
+        codes = tf.encode_audio(p, batch["audio"])
+        base, skip = batched_frame_feature(p, codes, t_idx)
+        if st.ensemble:
+            eps = (0.5 / st.lip_h) * eps_u / 2.0
+            shifted, wts = ensemble_coords(csl, st.lip_w, st.lip_h, eps)
+            out = tf.mlp_trunk(p, fourier_embed(shifted, 10),
+                               base[:, None, None, :], skip[:, None, None, :])
+            pred = (out * wts[..., None]).sum(1)
+        else:
+            pred = tf.mlp_trunk(p, fourier_embed(csl, 10)[None],
+                                base[:, None, :], skip[:, None, :])
+        return losses.photometric_loss(pred, tgt, weight=st.w_photometric)
+
+    def step(state: TrainState, batch, draws):
+        b = batch["audio"].shape[0]
+        t_idx = batch["index"].float()
+        coords = get_coords(st.lip_w, st.lip_h, device=batch["audio"].device)
+        rgb = batch["rgb"].reshape(b, n, 3)
+        params, opt_state = state.params, state.opt_state
+        chunk_losses = []
+        for ci in range(n_chunks):
+            sl = slice(ci * chunk, (ci + 1) * chunk)
+            p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+            loss = chunk_loss(p, batch, t_idx, coords[sl], rgb[:, sl],
+                              draws["eps_u"][ci])
+            leaves = tree_leaves(p)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = [torch.zeros_like(t) if g is None else g
+                     for g, t in zip(grads, leaves)]
+            updates, opt_state = optimizer.update(grads, opt_state)
+            params = tree_unflatten(p, [(t + u).detach()
+                                        for t, u in zip(leaves, updates)])
+            chunk_losses.append(loss.detach())
+        loss_rgb = torch.stack(chunk_losses).mean()
+        metrics = {"loss": loss_rgb, "loss_rgb": loss_rgb,
+                   "psnr": losses.psnr_from_mse(loss_rgb)}
+        return TrainState(params, state.unet_params, state.unet_state,
+                          opt_state, state.it + 1), metrics
 
     return step

@@ -1,16 +1,43 @@
-"""Static helpers of the trainer (counterpart of the ones in
-``speech2lip_tpu/train/trainer.py``): the K7 gate and the two forms of the
-canonical-depth loss's support, computed with numpy from the identity's
-canonical masks.  The trainer itself (dataset, loop, checkpoints) is not
-ported yet.
+"""The training loop (counterpart of ``speech2lip_tpu/train/trainer.py``):
+the outer loop around the train step, with its static helpers.
+
+``fit`` keeps the JAX loop's behaviours: resume by default, rolling,
+step-tagged and best checkpoints, periodic validation and visualisation,
+non-finite loss and weight checks, the staging boundary (sync loss on and
+U-Net frozen) as a rebuild of the step, per-ray-chunk stepping when
+``batch_rays`` < H*W, ``max_iters`` and a time-limited exit with code 3.
+It trains on one device, the card unless the caller names another; the
+step's random draws come from a ``torch.Generator`` seeded from
+``training.seed``, and each batch goes to the device once per iteration.
+The depth-loss helpers compute the canonical-depth loss's support with
+numpy from the identity's canonical masks.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import dataclasses
+import os
+import time
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+
+from speech2lip_tpu_torch import weights
+from speech2lip_tpu_torch.core.checkpoint import (CheckpointManager,
+                                                  check_weights)
+from speech2lip_tpu_torch.core import checkpoint as ckpt
+from speech2lip_tpu_torch.core.metrics import MetricsWriter, setup_logger
+from speech2lip_tpu_torch.data.dataset import LipDataset, stack_batch
+from speech2lip_tpu_torch.data.windows import cached_warp_window
+from speech2lip_tpu_torch.infer.renderer import (render_lip_batch,
+                                                 resolve_device)
+from speech2lip_tpu_torch.models import talking_face as tf
+from speech2lip_tpu_torch.ops.flowviz import extract_flow, flow_to_image
+from speech2lip_tpu_torch.train import train_step as ts
+
+# batch entries only the sync stage reads
+_SYNC_KEYS = ("mel", "audio_window", "coord_window", "rgb_window_neg")
 
 
 def resolve_pallas_gather(tr: Dict[str, Any], device) -> bool:
@@ -68,3 +95,383 @@ def depth_loss_points(mask_head, mask_face, rgb_face_zero, device="cpu"
     return {"xs": put(xs, torch.int64), "ys": put(ys, torch.int64),
             "w": put(m[ys, xs], torch.float32),
             "rgb_zero_pts": put(tgt[ys, xs], torch.float32)}
+
+
+# -- statics -----------------------------------------------------------------
+
+def _stage_flags(tr: Dict[str, Any], it: int) -> Tuple[bool, bool]:
+    """(sync loss on, U-Net frozen) at iteration ``it``."""
+    return (bool(tr["use_syncloss"] and it > tr["sync_start_iter"]),
+            bool(tr["fix_post_net"] or it > tr["postnet_freeze_iter"]))
+
+
+def _has_masks(ds) -> bool:
+    return (hasattr(ds, "mask_head_canonical")
+            and hasattr(ds, "mask_face_canonical"))
+
+
+def warp_window(cfg: Dict[str, Any], ds: LipDataset):
+    """The composite's static warp window: the config's value, or the
+    dataset's, computed once from its coord grids (cached on disk)."""
+    d = cfg["data"]
+    win = d.get("warp_window")
+    if (win is None and d.get("compute_warp_window", True)
+            and os.path.isdir(ds.coords_dir) and len(ds) > 0):
+        box = tf.expanded_lip_box(ds.lip_h, ds.lip_w, ds.lefttop_x,
+                                  ds.lefttop_y,
+                                  d.get("expand_mask_divisor", 5))
+        win = cached_warp_window(ds.root, box, ds.face_h, ds.face_w,
+                                 ds.iter_coords, margin=8)
+    return tuple(win) if win is not None else None
+
+
+def build_statics(cfg: Dict[str, Any], ds: LipDataset, it: int,
+                  device="cpu") -> ts.StepStatics:
+    """The step's statics at iteration ``it`` for training on ``device``.
+    As in the JAX trainer, ``compute_dtype`` and ``pallas_gather`` are read
+    from the ``training`` section."""
+    tr = cfg["training"]
+    d = cfg["data"]
+    sync_on, frozen = _stage_flags(tr, it)
+    bbox = (0, 0, ds.face_w, ds.face_h)
+    if getattr(ds, "face_bbox_dict", None):
+        key = "{:05d}.jpg".format(ds.canonical_idx + 1)
+        if key in ds.face_bbox_dict:
+            x, y, x2, y2 = [int(v) for v in ds.face_bbox_dict[key][:4]]
+            bbox = (x, y, x2, y2)
+    box = None
+    if tr.get("depth_loss_crop", True) and _has_masks(ds):
+        box = depth_loss_box(ds.mask_head_canonical, ds.mask_face_canonical)
+    return ts.StepStatics(
+        lip_h=int(d["height"]), lip_w=int(d["width"]),
+        lip_x=ds.lefttop_x, lip_y=ds.lefttop_y,
+        face_h=ds.face_h, face_w=ds.face_w,
+        focal=float(d["face_img_focal"]),
+        expand_divisor=int(d.get("expand_mask_divisor", 5)),
+        w_photometric=float(cfg["model"].get("lambda_rgb", 1.0)),
+        w_perceptual=float(tr["w_perceptual_loss"]),
+        w_post_fusion=float(tr["w_post_fusion"]),
+        w_sync=float(tr["w_syncloss"]),
+        use_perceptual=bool(tr["use_perceptual_loss"]),
+        use_canonical_depth_loss=bool(tr["use_canonical_depth_loss_photo_v2"]),
+        use_blackaug=bool(cfg["model"]["use_post_fusion_blackaug"]),
+        sync_on=sync_on, postnet_frozen=frozen,
+        face_bbox=bbox,
+        ensemble=bool(tr["use_local_ensemble"]),
+        window=warp_window(cfg, ds),
+        depth_loss_box=box,
+        add_noise_uv=bool(tr.get("add_noise_uv", False)),
+        add_noise_audio=bool(tr.get("add_noise_audio", False)),
+        compute_dtype=str(tr.get("compute_dtype", "float32")),
+        pallas_gather=resolve_pallas_gather(tr, device),
+    )
+
+
+# -- models ------------------------------------------------------------------
+
+def _identity_bn(state_like, params_like):
+    """The U-Net's BatchNorm at the JAX init's values: scale 1, bias 0,
+    running mean 0, variance 1."""
+    for name, blk in params_like.items():
+        for bn in ("bn1", "bn2"):
+            if bn in blk:
+                blk[bn]["scale"].fill_(1.0)
+                blk[bn]["bias"].zero_()
+                state_like[name][bn]["mean"].zero_()
+                state_like[name][bn]["var"].fill_(1.0)
+
+
+def init_params(cfg: Dict[str, Any], ds: LipDataset, seed: int = 0,
+                device="cpu"):
+    """(params, unet params, unet state) made from ``seed``: the JAX
+    package's trees (leaf names and shapes), the port's own draws.  The
+    canonical depth starts from the dataset's hole-filled depth."""
+    depth_init = None
+    if cfg["model"]["use_canonical_depth"] and hasattr(ds, "depth_canonical"):
+        depth_init = tf.prepare_canonical_depth_init(
+            ds.depth_canonical, ds.mask_head_canonical[..., 0])
+    params, unet_p, unet_s = weights.random_params(
+        seed, device=device, cfg=cfg, canonical_depth_init=depth_init)
+    _identity_bn(unet_s, unet_p)
+    return params, unet_p, unet_s
+
+
+def init_models(cfg: Dict[str, Any], ds: LipDataset, seed: int = 0,
+                device="cpu"):
+    """``init_params`` and the frozen nets of the losses (LPIPS, and
+    SyncNet with the sync loss), made from ``seed``."""
+    params, unet_p, unet_s = init_params(cfg, ds, seed, device)
+    frozen = {"lpips": weights.random_lpips(seed + 1, device=device)}
+    if cfg["training"]["use_syncloss"]:
+        frozen["syncnet"] = weights.random_syncnet(seed + 2, device=device)
+    return params, unet_p, unet_s, frozen
+
+
+def load_frozen_weights(cfg: Dict[str, Any], frozen: Dict[str, Any]):
+    """Converted pretrained LPIPS / SyncNet weights, where the files exist
+    (``training.{lpips,syncnet}_weights``, by default
+    ``models/<name>_weights.ckpt``)."""
+    for name in ("lpips", "syncnet"):
+        path = cfg["training"].get(f"{name}_weights",
+                                   f"models/{name}_weights.ckpt")
+        if path and os.path.exists(path) and name in frozen:
+            frozen[name], _ = ckpt.load(path, frozen[name])
+    return frozen
+
+
+# -- data --------------------------------------------------------------------
+
+def batch_iterator(ds: LipDataset, batch_size: int, shuffle: bool,
+                   seed: int, n_proc: int = 1, proc_id: int = 0
+                   ) -> Iterator[Dict[str, np.ndarray]]:
+    """One epoch of host batches (numpy), in the order of
+    ``np.random.default_rng(seed)``'s shuffle, as the JAX trainer's.  The
+    Python reader only: the JAX package's native prefetcher is not
+    ported (ROADMAP A4)."""
+    rng = np.random.default_rng(seed)
+    order = np.arange(len(ds))
+    if shuffle:
+        rng.shuffle(order)
+    order = order[proc_id::n_proc]
+    if len(order) < batch_size:
+        raise ValueError(
+            f"per-host batch_size={batch_size} exceeds this host's dataset "
+            f"slice ({len(order)} frames): reduce training.batch_size")
+    for i in range(0, len(order) - batch_size + 1, batch_size):
+        yield stack_batch([ds.load_frame(int(j)) for j in order[i:i + batch_size]])
+
+
+def to_device(host_batch: Dict[str, np.ndarray], device
+              ) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in host_batch.items()}
+
+
+# -- validation --------------------------------------------------------------
+
+def _render_val_frame(params, cfg, s, device):
+    d = cfg["data"]
+    audio = torch.from_numpy(s["audio"])[None].to(device)
+    t = torch.tensor([float(s["index"])], device=device)
+    with torch.no_grad():
+        return render_lip_batch(params, audio, t, int(d["height"]),
+                                int(d["width"]), use_kernels=True)[0]
+
+
+def evaluate_psnr(params, cfg, ds: LipDataset, max_frames: int = 64,
+                  device="cpu") -> float:
+    """Val PSNR of the lip render over the first ``max_frames`` frames,
+    one frame a call (K1 on the card)."""
+    mses = []
+    for i in range(min(len(ds), max_frames)):
+        s = ds.load_frame(i)
+        rgb = _render_val_frame(params, cfg, s, device)
+        mses.append(float(((rgb - torch.from_numpy(s["rgb"]).to(device))
+                           ** 2).mean()))
+    mse = float(np.mean(mses))
+    return -10.0 * np.log(mse) / np.log(10.0)
+
+
+def visualize(params, cfg, ds: LipDataset, metrics_w: MetricsWriter, it: int,
+              device="cpu"):
+    """Render val frame 0: its loss and PSNR as ``val_mini/`` scalars, the
+    prediction, the ground truth and the coord grid's flow as images."""
+    s = ds.load_frame(0)
+    rgb = _render_val_frame(params, cfg, s, device).cpu().numpy()
+    mse = float(np.mean((rgb - s["rgb"]) ** 2))
+    metrics_w.scalars(it, {"loss": mse,
+                           "psnr": -10.0 * np.log(mse) / np.log(10.0)},
+                      prefix="val_mini/")
+    metrics_w.image(it, "rgb_prediction", rgb)
+    metrics_w.image(it, "rgb_gt", s["rgb"])
+    if "coord" in s:
+        flow = extract_flow(np.asarray(s["coord"])[None])[0]
+        metrics_w.image(it, "flow", flow_to_image(flow) / 255.0)
+
+
+# -- the loop ----------------------------------------------------------------
+
+def _one_device(cfg: Dict[str, Any]):
+    shape = cfg["parallel"].get("mesh_shape")
+    if not shape:
+        return
+    if int(shape[0]) > 1:
+        raise NotImplementedError(
+            f"parallel.mesh_shape={list(shape)} asks for {shape[0]} data "
+            f"devices: the port trains on one card; multi-GPU data "
+            f"parallelism through torch.distributed/NCCL is ROADMAP A4")
+    if len(shape) > 1 and int(shape[1]) > 1:
+        raise NotImplementedError(
+            f"parallel.mesh_shape={list(shape)}: the 'pixel' mesh axis is "
+            f"out of scope until one-GPU training matches (ROADMAP A4)")
+
+
+def _n_chunks(cfg: Dict[str, Any], ds: LipDataset) -> int:
+    """Chunks of the per-ray-chunk regime, 1 for whole-frame steps.  That
+    regime carries only the lip photometric loss: the other loss flags are
+    refused (the original code crashes on them)."""
+    tr = cfg["training"]
+    n_rays = ds.lip_h * ds.lip_w
+    batch_rays = int(tr.get("batch_rays", n_rays))
+    if not 0 < batch_rays < n_rays:
+        return 1
+    if n_rays % batch_rays != 0:
+        raise ValueError(f"batch_rays={batch_rays} must divide "
+                         f"H*W={n_rays}")
+    bad = ([f for f in ("use_post_fusion",) if cfg["model"].get(f)]
+           + [f for f in ("use_perceptual_loss", "use_syncloss",
+                          "use_canonical_depth_loss_photo_v2") if tr.get(f)])
+    if bad:
+        raise ValueError(
+            f"batch_rays={batch_rays} < H*W={n_rays} (per-chunk stepping) "
+            f"supports only the lip photometric loss; disable {bad}")
+    return n_rays // batch_rays
+
+
+def fit(cfg: Dict[str, Any], max_iters: Optional[int] = None,
+        exit_after: Optional[float] = None, device=None) -> ts.TrainState:
+    """Train until ``max_iters`` or ``exit_after`` seconds (then a
+    checkpoint and ``SystemExit(3)``).  Returns the state.
+
+    Each printed iteration's ``train/`` scalars add ``batch_ms`` (the host
+    batch and its copy to the device) and ``step_ms`` (the step, up to the
+    loss read that waits for the device)."""
+    device = resolve_device(device)
+    tr = cfg["training"]
+    _one_device(cfg)
+    out_dir = tr["out_dir"]
+    logger = setup_logger(out_dir, tr.get("logfile", "train.log"))
+    metrics_w = MetricsWriter(out_dir)
+    ckpt_mgr = CheckpointManager(out_dir,
+                                 sharded=bool(tr.get("sharded_ckpt", False)))
+
+    ds = LipDataset(cfg["data"]["path"], "train", cfg)
+    val_ds = LipDataset(cfg["data"]["path"], "val", cfg)
+
+    params, unet_p, unet_s, frozen = init_models(cfg, ds, tr.get("seed", 0),
+                                                 device)
+    frozen = load_frozen_weights(cfg, frozen)
+    opt = ts.make_optimizer(cfg)
+    n_chunks = _n_chunks(cfg, ds)
+    chunked = n_chunks > 1
+    trainable = params if chunked else {"model": params, "unet": unet_p}
+    state = ts.TrainState(params, unet_p, unet_s,
+                          opt.init(ts.tree_leaves(trainable)), 0)
+
+    # resume by default; ``it`` counts completed optimizer steps
+    tree, scalars = ckpt_mgr.restore(ts.state_to_tree(state, chunked))
+    state = ts.state_from_tree(tree)
+    it = int(scalars.get("it", 0))
+    epoch_it = int(scalars.get("epoch_it", -1))
+    metric_best = float(scalars.get("loss_val_best", -np.inf))
+    logger.info("resume at it=%d epoch=%d best=%.4f", it, epoch_it,
+                metric_best)
+
+    statics = build_statics(cfg, ds, max(it, 0), device)
+    if (statics.pallas_gather and statics.use_canonical_depth_loss
+            and statics.depth_loss_box is None and _has_masks(ds)):
+        pts = depth_loss_points(ds.mask_head_canonical,
+                                ds.mask_face_canonical, ds.rgb_face_zero,
+                                device)
+        if pts is not None:
+            frozen["depth_pts"] = pts
+    if chunked:
+        step_fn = ts.make_chunked_train_step(opt, statics, n_chunks)
+    else:
+        step_fn = ts.make_train_step(opt, statics, frozen)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(tr.get("seed", 0)))
+
+    t0 = time.time()
+    t0b = time.time()
+    batch_size = int(tr["batch_size"])
+    if len(ds) < 1:
+        raise ValueError("the train split holds no frame")
+    if batch_size > len(ds):
+        logger.warning("batch %d exceeds the %d-frame train split; "
+                       "clamping to %d", batch_size, len(ds), len(ds))
+        batch_size = len(ds)
+
+    def save_tree():
+        return ts.state_to_tree(state, chunked)
+
+    while True:
+        epoch_it += 1
+        t_it = time.perf_counter()
+        for host_batch in batch_iterator(ds, batch_size, shuffle=True,
+                                         seed=epoch_it):
+            it += 1
+
+            # staging boundary: rebuild the step once
+            sync_on, frozen_net = _stage_flags(tr, it)
+            if (not chunked and (sync_on, frozen_net)
+                    != (statics.sync_on, statics.postnet_frozen)):
+                logger.info("staging change at it=%d: sync_on=%s frozen=%s",
+                            it, sync_on, frozen_net)
+                statics = dataclasses.replace(statics, sync_on=sync_on,
+                                              postnet_frozen=frozen_net)
+                step_fn = ts.make_train_step(opt, statics, frozen)
+
+            if not statics.sync_on:
+                host_batch = {k: v for k, v in host_batch.items()
+                              if k not in _SYNC_KEYS}
+            batch = to_device(host_batch, device)
+            b = int(batch["audio"].shape[0])
+            draws = (ts.draw_chunk_noise(n_chunks, b, device, gen) if chunked
+                     else ts.draw_noise(statics, b, device, gen))
+            t_batch = time.perf_counter()
+            state, m = step_fn(state, batch, draws)
+
+            if tr["print_every"] > 0 and it % tr["print_every"] == 0:
+                loss = float(m["loss"])
+                t_step = time.perf_counter()
+                if not np.isfinite(loss):
+                    raise FloatingPointError(f"non-finite loss at it={it}")
+                logger.info("[Epoch %02d] it=%d loss=%.4f psnr=%.2f t=%.2fs",
+                            epoch_it, it, loss, float(m["psnr"]),
+                            time.time() - t0b)
+                metrics_w.scalars(it, dict(
+                    m, batch_ms=1e3 * (t_batch - t_it),
+                    step_ms=1e3 * (t_step - t_batch)), prefix="train/")
+                t0b = time.time()
+
+            if tr["checkpoint_every"] > 0 and it % tr["checkpoint_every"] == 0:
+                bad = check_weights(state.params)
+                if bad:
+                    raise FloatingPointError(
+                        f"non-finite weights at it={it}: {bad[:5]}")
+                ckpt_mgr.save_latest(save_tree(), async_=True,
+                                     epoch_it=epoch_it, it=it,
+                                     loss_val_best=metric_best)
+            if tr["backup_every"] > 0 and it % tr["backup_every"] == 0:
+                ckpt_mgr.save_step(save_tree(), it, async_=True,
+                                   epoch_it=epoch_it,
+                                   loss_val_best=metric_best)
+
+            if (tr.get("visualize_every", 0) > 0
+                    and it % tr["visualize_every"] == 0):
+                visualize(state.params, cfg, val_ds, metrics_w, it, device)
+
+            if (tr["validate_every"] > 0 and it % tr["validate_every"] == 0
+                    and it != 0):
+                psnr = evaluate_psnr(state.params, cfg, val_ds,
+                                     device=device)
+                metrics_w.scalars(it, {"psnr": psnr}, prefix="val/")
+                logger.info("validation psnr=%.4f", psnr)
+                if psnr > metric_best:
+                    metric_best = psnr
+                    ckpt_mgr.save_best(save_tree(), epoch_it=epoch_it, it=it,
+                                       loss_val_best=metric_best)
+
+            if max_iters is not None and it >= max_iters:
+                ckpt_mgr.save_latest(save_tree(), epoch_it=epoch_it, it=it,
+                                     loss_val_best=metric_best)
+                metrics_w.close()
+                return state
+            if exit_after is not None and time.time() - t0 >= exit_after:
+                logger.info("time limit reached; checkpoint + exit(3)")
+                ckpt_mgr.save_latest(save_tree(), epoch_it=epoch_it, it=it,
+                                     loss_val_best=metric_best)
+                metrics_w.close()
+                raise SystemExit(3)
+            t_it = time.perf_counter()

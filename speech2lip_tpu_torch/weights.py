@@ -99,16 +99,23 @@ def _random_bn(rng, c):
              "var": rng.uniform(0.5, 1.5, c).astype(np.float32)})
 
 
-def random_params(seed: int = 0, device="cpu", dtype=torch.float32):
-    """Parameters of the default model made from a seed, laid out as
-    ``from_jax`` returns them: uniform(+-1/sqrt(fan_in)) weights and biases
-    as in the JAX package's ``init``, BatchNorm at a random eval state, and
-    a canonical depth of the configured size drawn from U(0.8, 1.2) (no
-    JAX needed)."""
+def random_params(seed: int = 0, device="cpu", dtype=torch.float32,
+                  cfg=None, canonical_depth_init=None):
+    """Parameters of the model made from a seed, laid out as ``from_jax``
+    returns them: uniform(+-1/sqrt(fan_in)) weights and biases as in the
+    JAX package's ``init``, BatchNorm at a random eval state, and a
+    canonical depth drawn from U(0.8, 1.2) (no JAX needed).
+
+    ``cfg``: a config whose ``model`` section gives the widths, depth,
+    skips, output channels, audio input (``use_audio_mel``) and canonical
+    depth (``use_canonical_depth``, its size); the defaults otherwise.
+    ``canonical_depth_init`` [H, W] replaces the drawn depth."""
     from speech2lip_tpu_torch.config import default_config
 
-    m = default_config()["model"]
-    width, depth, skip = m["net_width"], m["net_depth"], m["skips"][0]
+    m = (cfg or default_config())["model"]
+    width, depth = m["net_width"], m["net_depth"]
+    skips = list(m.get("skips", [4]))
+    audio_in = 80 if m.get("use_audio_mel") else 29
     base = 64  # the U-Net's first width
     rng = np.random.default_rng(seed)
     u = _uniform(rng)
@@ -120,19 +127,23 @@ def random_params(seed: int = 0, device="cpu", dtype=torch.float32):
         return {"w": u((3, i, o), 3 * i), "b": u((o,), 3 * i)}
 
     tf = {
-        "audio_enc": {"conv": [conv1(29, 32), conv1(32, 32), conv1(32, 64),
-                               conv1(64, 64)],
+        "audio_enc": {"conv": [conv1(audio_in, 32), conv1(32, 32),
+                               conv1(32, 64), conv1(64, 64)],
                       "fc": [lin(64, 64), lin(64, 64)]},
         "fc_uv": lin(42, width), "fc_uv_skip": lin(42, width),
         "fc_audio": lin(64, width), "fc_audio_skip": lin(64, width),
         "fc_time": lin(20, width), "fc_time_skip": lin(20, width),
-        "trunk": [lin(2 * width if i == skip + 1 else width, width)
+        "trunk": [lin(2 * width if i - 1 in skips else width, width)
                   for i in range(depth)],
         "output": lin(width, m["output_ch"]),
         "canonical_depth": rng.uniform(
             0.8, 1.2, (m["canonical_depth_height"],
                        m["canonical_depth_width"])).astype(np.float32),
     }
+    if canonical_depth_init is not None:
+        tf["canonical_depth"] = np.asarray(canonical_depth_init, np.float32)
+    if not m.get("use_canonical_depth", True):
+        del tf["canonical_depth"]
     up, us = {}, {}
     for name, cin, cmid, cout in (("inc", 3, base, base),
                                   ("down1", base, 2 * base, 2 * base),

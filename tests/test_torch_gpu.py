@@ -770,3 +770,44 @@ def test_dot_probe_raises_on_what_it_does_not_take(cuda):
                       1)                                      # not contiguous
     with pytest.raises(ValueError):
         kdp.dot_probe(lhs, rhs.cpu(), 1)                      # two devices
+
+
+def test_fit_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """Two float32 iterations of ``fit`` on a small identity, K2/K7
+    gathers forced on: the card (kernels) against the CPU (their plain
+    versions), from the same seeded init, the step's random draws off;
+    validation renders through K1."""
+    import json
+
+    from speech2lip_tpu_torch.data.synthetic import (make_synthetic_tree,
+                                                     synthetic_config)
+    from speech2lip_tpu_torch.train import trainer
+
+    root = str(tmp_path / "tree")
+    cfg = synthetic_config(root, make_synthetic_tree(
+        root, n_frames=12, face=64, lip_h=16, lip_w=24))
+    cfg["model"]["use_post_fusion_blackaug"] = False
+    cfg["training"].update(batch_size=2, print_every=1, checkpoint_every=0,
+                           backup_every=0, validate_every=2,
+                           visualize_every=0, use_local_ensemble=False,
+                           use_syncloss=False, pallas_gather=True)
+    recs = {}
+    kws.launches = khs.dsrc_launches = khs.dgrid_launches = 0
+    kmlp.launches = 0
+    for dev in ("cuda", "cpu"):
+        c = dict(cfg, training=dict(cfg["training"],
+                                    out_dir=str(tmp_path / dev)))
+        trainer.fit(c, max_iters=2, device=dev)
+        recs[dev] = [json.loads(line) for line in open(
+            tmp_path / dev / "metrics.jsonl")]
+    # per step: the composite's window gather (K2, dsrc) and the depth-loss
+    # crop (K2, dgrid)
+    assert (kws.launches, khs.dsrc_launches, khs.dgrid_launches) == (4, 2, 2)
+    assert kmlp.launches == 2       # the val split's two frames
+    assert len(recs["cuda"]) == len(recs["cpu"]) == 3
+    for got, ref in zip(recs["cuda"], recs["cpu"]):
+        for k in ref:
+            if k.startswith(("train/loss", "train/psnr", "train/grad",
+                             "val/")):
+                assert abs(got[k] - ref[k]) <= 1e-4 * max(1.0, abs(ref[k])), \
+                    (k, got[k], ref[k])

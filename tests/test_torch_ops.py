@@ -47,12 +47,10 @@ def _close(got, ref, tol=TOL):
 
 
 def test_default_config_fields_match_jax():
+    """The port's whole default tree equals the JAX package's."""
     from speech2lip_tpu.core.config import default_config as jdefault
     from speech2lip_tpu_torch.config import default_config
-    ours, ref = default_config(), jdefault()
-    for section in ("model", "data", "training"):
-        for key, val in ours[section].items():
-            assert ref[section][key] == val, (section, key)
+    assert default_config() == jdefault()
 
 
 @pytest.mark.parametrize("multires", [0, 4, 10])
@@ -188,7 +186,7 @@ mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in mods:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
-assert len(mods) >= 34, mods
+assert len(mods) >= 48, mods
 
 def banned(name):
     top = name.split(".")[0]
@@ -211,4 +209,4 @@ print(len(files))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 35
+    assert int(res.stdout.split()[-1]) >= 49
