@@ -1,0 +1,170 @@
+"""New-audio inference and multi-identity serving (counterpart of
+``speech2lip_tpu/infer/pipeline.py``).
+
+- ``new_audio_frames``: raw wav -> DeepSpeech windows -> rendered,
+  composited face frames through the ``Renderer``.
+- ``MultiSpeakerServer``: N identities served from one process, grouped
+  by lip paste offset.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from speech2lip_tpu_torch.infer.renderer import (cast_tree, render_face_batch,
+                                                 resolve_device)
+
+# the batch entries the renderers read
+RENDER_KEYS = ("audio", "index", "rgb_face_zero", "rgb_face_ori",
+               "mask_lip_canonical", "coord")
+
+
+def frame_batch(base: Dict[str, Any], windows: np.ndarray, start: int,
+                stop: int, device) -> Dict[str, torch.Tensor]:
+    """Frames ``start``..``stop`` of a new-audio clip on ``device``: the
+    canonical frame's sample ``base`` with each frame's audio window and
+    its index in the clip."""
+    from speech2lip_tpu_torch.data.dataset import stack_batch
+    from speech2lip_tpu_torch.train.trainer import to_device
+
+    samples = []
+    for i in range(start, stop):
+        s = dict(base)
+        s["audio"] = windows[i].astype(np.float32)
+        s["index"] = np.int32(i)
+        samples.append(s)
+    host = stack_batch(samples)
+    return to_device({k: host[k] for k in RENDER_KEYS if k in host}, device)
+
+
+def new_audio_frames(cfg: Dict[str, Any], state, ds, ds_params,
+                     wav: np.ndarray, sample_rate: int, batch: int = 8,
+                     window: Optional[tuple] = None, device=None):
+    """Render face frames for arbitrary speech audio.
+
+    state: anything with ``params``, ``unet_params`` and ``unet_state``
+    (a ``TrainState``); ds: a ``LipDataset`` opened in 'test' mode (its
+    canonical-frame artifacts serve every frame); ds_params: the port's
+    DeepSpeech tree.  Runs on the card unless ``device`` names another.
+    Yields [B, H, W, 3] float32 numpy face frames."""
+    from speech2lip_tpu_torch.infer.renderer import Renderer
+    from speech2lip_tpu_torch.preprocess.audio_features import \
+        wav_to_deepspeech_windows
+
+    device = resolve_device(device)
+    windows = wav_to_deepspeech_windows(wav, sample_rate, ds_params,
+                                        device=device)
+    renderer = Renderer(cfg, state.params, state.unet_params,
+                        state.unet_state, device=device, window=window)
+    base = ds.load_frame(0)
+    n = windows.shape[0]
+    for start in range(0, n, batch):
+        b = frame_batch(base, windows, start, min(start + batch, n), device)
+        yield renderer(b, ds.lefttop_x, ds.lefttop_y)["face"].cpu().numpy()
+
+
+class MultiSpeakerServer:
+    """Multi-identity serving: S identities that share the lip and face
+    geometry, grouped by lip paste offset.
+
+    The JAX server stacks each group's parameters and serves a group with
+    one vmapped XLA program, or each identity through its fused kernels
+    once the per-identity batch reaches ``FUSED_BATCH_THRESHOLD``.  The
+    port has no vmapped program to build: K1's weights belong to one
+    identity, so no K1 launch spans identities.  It keeps one set of
+    parameters per identity, cast to the compute dtype once, at
+    construction (casting per call would cost hundreds of small copies),
+    and serves each identity of each group in turn through the kernel
+    path: K1, K2 and five K3 launches a batch on the card.  So the JAX
+    server's two routes, which compute the same function, are one route
+    here on both sides of its ``FUSED_BATCH_THRESHOLD``, which stays as
+    the JAX server's switch.
+
+    Runs on the card unless ``device`` names another.  On a CUDA device it
+    runs the kernels, and ``use_kernels=False`` raises: the card serves no
+    plain path.  On the CPU ``use_kernels`` defaults to False, the plain
+    path; True runs the kernel wrappers' plain versions.  As in the JAX
+    server the dtype follows the path, whatever the config says: bfloat16
+    with the kernels, float32 without; ``compute_dtype`` overrides it.
+    """
+
+    FUSED_BATCH_THRESHOLD = 16
+
+    def __init__(self, cfg: Dict[str, Any], param_sets: List[tuple],
+                 lip_positions: List[tuple], window: Optional[tuple] = None,
+                 use_kernels: Optional[bool] = None, mesh=None, device=None,
+                 compute_dtype: Optional[torch.dtype] = None):
+        """param_sets: [(params, unet_params, unet_state)] per identity;
+        lip_positions: [(lip_x, lip_y)] per identity; window: the static
+        warp window every identity's composite uses."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "MultiSpeakerServer(mesh=...): serving identities across "
+                "cards is not ported (ROADMAP A4, multi-GPU)")
+        self.device = resolve_device(device)
+        on_card = self.device.type == "cuda"
+        if use_kernels is None:
+            use_kernels = on_card
+        if on_card and not use_kernels:
+            raise ValueError("MultiSpeakerServer: a CUDA device runs the "
+                             "kernels; use_kernels=False is for the CPU")
+        self.use_kernels = bool(use_kernels)
+        self.compute_dtype = compute_dtype or (
+            torch.bfloat16 if self.use_kernels else torch.float32)
+        d = cfg["data"]
+        self.lip_h, self.lip_w = int(d["height"]), int(d["width"])
+        self.window = tuple(window) if window is not None else None
+        self.n_identities = len(param_sets)
+        self.groups: Dict[tuple, List[int]] = {}
+        for i, (x, y) in enumerate(lip_positions):
+            self.groups.setdefault((int(x), int(y)), []).append(i)
+        self._offset = {i: off for off, ids in self.groups.items()
+                        for i in ids}
+        self._param_sets = [
+            tuple(cast_tree(t, self.device, self.compute_dtype) for t in ps)
+            for ps in param_sets]
+
+    def param_shardings(self) -> Dict[tuple, torch.device]:
+        """{offset group -> the device its identities' parameters are on}."""
+        return {off: self.device for off in self.groups}
+
+    def _render(self, identity: int, batch: Dict[str, Any],
+                use_kernels: bool):
+        lip_x, lip_y = self._offset[identity]
+        with torch.no_grad():
+            return render_face_batch(
+                *self._param_sets[identity], batch, lip_x=lip_x, lip_y=lip_y,
+                lip_h=self.lip_h, lip_w=self.lip_w, use_kernels=use_kernels,
+                compute_dtype=self.compute_dtype, window=self.window)
+
+    def render(self, identity: int, batch: Dict[str, Any]):
+        """Render a frame batch (tensors on the server's device) for one
+        identity: {'lip', 'face'} float32."""
+        return self._render(identity, batch, self.use_kernels)
+
+    def render_plain(self, identity: int, batch: Dict[str, Any]):
+        """``render`` with no kernel, on the same cast parameters, dtype and
+        window: the reference the kernel path is held to.  It serves
+        nothing."""
+        return self._render(identity, batch, False)
+
+    def render_fast(self, identity: int, batch: Dict[str, Any]):
+        """The JAX server's fused-kernel route for one identity: in the
+        port the same path as ``render``."""
+        return self.render(identity, batch)
+
+    def render_all(self, batches: List[Dict[str, Any]]):
+        """Serve every identity, group by group, each identity of a group
+        in turn.  batches: per-identity frame batches of one size.
+        Returns the outputs indexed by identity."""
+        if len(batches) != self.n_identities:
+            raise ValueError(f"need {self.n_identities} batches, "
+                             f"got {len(batches)}")
+        out: List[Any] = [None] * self.n_identities
+        for ids in self.groups.values():
+            for i in ids:
+                out[i] = self.render(i, batches[i])
+        return out

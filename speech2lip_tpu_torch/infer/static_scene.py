@@ -65,16 +65,31 @@ def crop_geometry(window: Tuple[int, int, int, int], face_h: int,
             "iy0": iy0, "ix0": ix0, "ih": iy1 - iy0, "iw": ix1 - ix0}
 
 
+def fused_unet_fits(h: int, w: int) -> bool:
+    """Whether the kernel path runs the U-Net at h x w through K3: H and W
+    multiples of 4 and at most 500 (the TPU kernel's VMEM budget), the
+    JAX package's shape rule."""
+    return h % 4 == 0 and w % 4 == 0 and h <= 500 and w <= 500
+
+
 def _apply_unet(unet_params, unet_state, x, use_kernels: bool):
     """The U-Net as the JAX package's ``_apply_unet`` chooses it by shape:
-    with kernels, K3 (``apply_infer_fused``) where H and W are multiples of
-    4 and at most 500 (the TPU kernel's VMEM budget); otherwise the plain
-    exact-2x forward.  The choice follows the reference's shape rule; it is
-    not a fallback for a kernel that fails (one that fails raises)."""
-    h, w = x.shape[1:3]
-    if use_kernels and h % 4 == 0 and w % 4 == 0 and h <= 500 and w <= 500:
+    with kernels, K3 (``apply_infer_fused``) where ``fused_unet_fits``;
+    otherwise the plain exact-2x forward.  The choice follows the
+    reference's shape rule; it is not a fallback for a kernel that fails
+    (one that fails raises)."""
+    if use_kernels and fused_unet_fits(*x.shape[1:3]):
         return unet_light.apply_infer_fused(unet_params, unet_state, x)
     out, _ = unet_light.apply(unet_params, unet_state, x, exact2x=True)
+    return out
+
+
+def _plain_unet(unet_params, unet_state, x):
+    """What ``_apply_unet(use_kernels=True)`` computes, with no kernel:
+    K3's function (``unet_light.apply``, align-corners) where K3 runs,
+    the exact-2x forward elsewhere."""
+    out, _ = unet_light.apply(unet_params, unet_state, x,
+                              exact2x=not fused_unet_fits(*x.shape[1:3]))
     return out
 
 
@@ -94,14 +109,16 @@ class StaticSceneRenderer:
     path.  On the CPU ``use_kernels`` picks which of the JAX package's two
     paths to mirror: the plain exact-2x path in ``model.compute_dtype``
     (default), or the kernel path's semantics in bf16 through the kernel
-    wrappers' plain versions.  Without a crop geometry every batch runs the
-    full frame.
+    wrappers' plain versions.  ``compute_dtype`` overrides the dtype (the
+    kernels have float32 bodies too).  Without a crop geometry every batch
+    runs the full frame.
     """
 
     def __init__(self, cfg: Dict[str, Any], params, unet_params, unet_state,
                  base: Dict[str, Any], window: Tuple[int, int, int, int],
                  lip_x: int, lip_y: int, device=None,
-                 use_kernels: Optional[bool] = None):
+                 use_kernels: Optional[bool] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         d = cfg["data"]
         self.lip_h, self.lip_w = int(d["height"]), int(d["width"])
         self.lip_x, self.lip_y = int(lip_x), int(lip_y)
@@ -114,7 +131,8 @@ class StaticSceneRenderer:
                              "kernels; use_kernels=False is for the CPU")
         self.use_kernels = bool(use_kernels)
         cdt = _DTYPES[cfg["model"].get("compute_dtype", "float32")]
-        self.compute_dtype = torch.bfloat16 if self.use_kernels else cdt
+        self.compute_dtype = compute_dtype or (
+            torch.bfloat16 if self.use_kernels else cdt)
         self.params, self.unet_params, self.unet_state = (
             cast_tree(t, self.device, self.compute_dtype)
             for t in (params, unet_params, unet_state))
@@ -132,46 +150,64 @@ class StaticSceneRenderer:
             self.static_face = _apply_unet(self.unet_params, self.unet_state,
                                            self.scene[1], self.use_kernels)
 
-    def _composite(self, audio, t_indices):
+    def _composite(self, audio, t_indices, use_kernels: bool):
         audio = torch.as_tensor(audio).to(self.device, torch.float32)
         t = torch.as_tensor(t_indices).to(self.device, torch.float32)
         b = audio.shape[0]
         rgb_lip = render_lip_batch(self.params, audio, t, self.lip_h,
-                                   self.lip_w, use_kernels=self.use_kernels,
+                                   self.lip_w, use_kernels=use_kernels,
                                    compute_dtype=self.compute_dtype)
         fz, gt, mask = (x.expand(b, *x.shape[1:]) for x in self.scene)
         unet_in, _, _ = tf.post_fusion_composite(
             rgb_lip.to(self.compute_dtype), fz, gt, mask,
             self.coord.expand(b, *self.coord.shape[1:]), self.lip_x,
             self.lip_y, expand_divisor=self.expand_divisor,
-            window=self.window, use_kernels=self.use_kernels)
+            window=self.window, use_kernels=use_kernels)
         return unet_in.to(self.compute_dtype)
+
+    def _render(self, unet_in, unet, static_face):
+        """``unet`` on the crop of the composite, its interior pasted into
+        ``static_face``; on the whole composite without a crop geometry."""
+        if self.geo is None:
+            return unet(unet_in).float()
+        g = self.geo
+        crop = unet_in[:, g["cy0"]:g["cy0"] + g["ch"],
+                       g["cx0"]:g["cx0"] + g["cw"]].contiguous()
+        out = unet(crop)
+        y0, x0 = g["iy0"] - g["cy0"], g["ix0"] - g["cx0"]
+        face = static_face.expand(unet_in.shape[0], -1, -1,
+                                  -1).to(out.dtype).clone()
+        face[:, g["iy0"]:g["iy0"] + g["ih"],
+             g["ix0"]:g["ix0"] + g["iw"]] = out[:, y0:y0 + g["ih"],
+                                                x0:x0 + g["iw"]]
+        return face.float()
 
     def __call__(self, audio, t_indices):
         """audio [B, 16, 29], t_indices [B] -> faces [B, H, W, 3] float32:
         the U-Net on the crop, its interior pasted into ``static_face``."""
         with torch.no_grad():
-            unet_in = self._composite(audio, t_indices)
-            if self.geo is None:
-                return _apply_unet(self.unet_params, self.unet_state,
-                                   unet_in, self.use_kernels).float()
-            g = self.geo
-            crop = unet_in[:, g["cy0"]:g["cy0"] + g["ch"],
-                           g["cx0"]:g["cx0"] + g["cw"]].contiguous()
-            out = _apply_unet(self.unet_params, self.unet_state, crop,
-                              self.use_kernels)
-            y0, x0 = g["iy0"] - g["cy0"], g["ix0"] - g["cx0"]
-            face = self.static_face.expand(unet_in.shape[0], -1, -1,
-                                           -1).to(out.dtype).clone()
-            face[:, g["iy0"]:g["iy0"] + g["ih"],
-                 g["ix0"]:g["ix0"] + g["iw"]] = out[:, y0:y0 + g["ih"],
-                                                    x0:x0 + g["iw"]]
-            return face.float()
+            return self._render(
+                self._composite(audio, t_indices, self.use_kernels),
+                lambda x: _apply_unet(self.unet_params, self.unet_state, x,
+                                      self.use_kernels), self.static_face)
+
+    def render_plain(self, audio, t_indices):
+        """The kernel path's batch computed with no kernel, on this
+        renderer's parameters, dtype and scene: the lip and the composite
+        through their plain versions, the U-Net through ``_plain_unet`` on
+        the crop and on the static face.  The reference the kernel path is
+        held to; it serves nothing."""
+        def unet(x):
+            return _plain_unet(self.unet_params, self.unet_state, x)
+        with torch.no_grad():
+            return self._render(self._composite(audio, t_indices, False),
+                                unet, unet(self.scene[1]))
 
     def render_full(self, audio, t_indices):
         """The full-frame U-Net on the same composite (same upsample
         semantics), for parity checks and timing."""
         with torch.no_grad():
-            return _apply_unet(self.unet_params, self.unet_state,
-                               self._composite(audio, t_indices),
-                               self.use_kernels).float()
+            return _apply_unet(
+                self.unet_params, self.unet_state,
+                self._composite(audio, t_indices, self.use_kernels),
+                self.use_kernels).float()

@@ -225,3 +225,51 @@ def random_syncnet(seed: int = 0, device="cpu"):
             state[name].append({"bn": bn_s})
             c = out_ch
     return syncnet_from_jax(params, state, device)
+
+
+_DS_LINEARS = ("fc1", "fc2", "fc3", "fc5", "fc6")
+
+
+def deepspeech_from_jax(tree_np, device="cpu"):
+    """The JAX DeepSpeech tree (``core/checkpoint.load_nested`` of its npz,
+    or ``jax.tree.map(np.asarray, deepspeech.init(...))``) -> the port's,
+    float32 tensors on ``device`` (the model computes in float32)."""
+    p = _tree(tree_np, device, torch.float32)
+    for name in _DS_LINEARS:
+        w, b = p[name]["w"], p[name]["b"]
+        _expect(w.ndim == 2 and b.shape == (w.shape[1],),
+                f"deepspeech {name} must be w [in, out], b [out]")
+    hidden = p["fc1"]["w"].shape[1]
+    for name in ("lstm_fw", "lstm_bw"):
+        k, b = p[name]["kernel"], p[name]["bias"]
+        _expect(tuple(k.shape) == (3 * hidden, 4 * hidden)
+                and tuple(b.shape) == (4 * hidden,),
+                f"deepspeech {name} must be a fused [in + h, 4h] kernel "
+                f"with in = 2h = {2 * hidden}")
+    _expect(p["fc3"]["w"].shape[1] == 2 * hidden
+            and p["fc5"]["w"].shape[0] == 2 * hidden,
+            "deepspeech fc3 must widen to 2h and fc5 take both directions")
+    return p
+
+
+def random_deepspeech(seed: int = 0, input_dim: int = 494, hidden: int = 2048,
+                      n_logits: int = 29, device="cpu"):
+    """DeepSpeech weights made from a seed, with numpy: the shapes and the
+    uniform bounds of the JAX package's ``deepspeech.init`` (linears
+    U(+-1/sqrt(in)) weights and biases; LSTM kernels U(+-1/sqrt(in + h)),
+    zero biases)."""
+    rng = np.random.default_rng(seed)
+    u = _uniform(rng)
+
+    def lin(i, o):
+        return {"w": u((i, o), i), "b": u((o,), i)}
+
+    def lstm(i):
+        return {"kernel": u((i + hidden, 4 * hidden), i + hidden),
+                "bias": np.zeros((4 * hidden,), np.float32)}
+
+    tree = {"fc1": lin(input_dim, hidden), "fc2": lin(hidden, hidden),
+            "fc3": lin(hidden, 2 * hidden), "lstm_fw": lstm(2 * hidden),
+            "lstm_bw": lstm(2 * hidden), "fc5": lin(2 * hidden, hidden),
+            "fc6": lin(hidden, n_logits)}
+    return deepspeech_from_jax(tree, device)

@@ -811,3 +811,147 @@ def test_fit_on_the_card_matches_the_cpu(cuda, tmp_path):
                              "val/")):
                 assert abs(got[k] - ref[k]) <= 1e-4 * max(1.0, abs(ref[k])), \
                     (k, got[k], ref[k])
+
+
+# -- serving new audio: DeepSpeech, the splat, the server, pose editing -----
+
+def test_deepspeech_on_the_card_matches_the_cpu(cuda):
+    """wav -> DeepSpeech windows, float32, TF32 off on both sides: the
+    card's RNN against the CPU's at hidden 256, batch_t 256 (512 steps)."""
+    import numpy as np
+
+    from speech2lip_tpu_torch.preprocess import audio_features as af
+
+    tp = weights.random_deepspeech(0, hidden=256)
+    rng = np.random.default_rng(0)
+    wav = (rng.standard_normal(24000) * 3000).astype(np.int16)
+    got = af.wav_to_deepspeech_windows(wav, 16000, tp, batch_t=256,
+                                       device=cuda)
+    ref = af.wav_to_deepspeech_windows(wav, 16000, tp, batch_t=256,
+                                       device="cpu")
+    assert got.shape == ref.shape == (38, 16, 29)
+    assert float(np.abs(got - ref).max()) <= 1e-4 * max(1.0, np.abs(ref).max())
+
+
+def test_splat_on_the_card_is_exact(cuda):
+    """forward_splat_nearest (collisions, ties, out-of-range targets, with
+    and without z) and splat_depth: the card equals the CPU."""
+    from speech2lip_tpu_torch.ops import splat
+
+    g = torch.Generator().manual_seed(0)
+    src = torch.rand(2, 40, 48, 3, generator=g)
+    flow = torch.randint(-4, 5, (2, 40, 48, 2), generator=g).float()
+    flow += 0.5 * torch.randint(-1, 2, (2, 40, 48, 2), generator=g)
+    flow[:, :2] = 100.0
+    z = torch.randint(1, 4, (2, 40, 48), generator=g).float()
+    for zz in (z, None):
+        ref = splat.forward_splat_nearest(src, flow, zz)
+        got = splat.forward_splat_nearest(src.to(cuda), flow.to(cuda),
+                                          None if zz is None else zz.to(cuda))
+        assert torch.equal(got.cpu(), ref)
+    pts = torch.rand(5000, 2, generator=g) * 60 - 5
+    zp = torch.rand(5000, generator=g) * 3 - 0.5
+    assert torch.equal(splat.splat_depth(pts.to(cuda), zp.to(cuda), 40,
+                                         48).cpu(),
+                       splat.splat_depth(pts, zp, 40, 48))
+
+
+def _serving_setup(cuda, face=128, lip=32, bsz=3):
+    """A small synthetic batch on the card and a warp window that holds
+    both lip offsets the server test uses."""
+    from speech2lip_tpu_torch.config import default_config
+    from speech2lip_tpu_torch.data.synthetic import synthetic_batch
+    from speech2lip_tpu_torch.data.windows import compute_warp_window
+
+    cfg = default_config()
+    cfg["model"]["canonical_depth_height"] = face
+    cfg["model"]["canonical_depth_width"] = face
+    cfg["data"]["height"] = cfg["data"]["width"] = lip
+    raw, geo = synthetic_batch(bsz, face=face, lip_h=lip, lip_w=lip)
+    box = ttf.expanded_lip_box(lip, lip, geo["lip_x"] - 2, geo["lip_y"])
+    geo["window"] = compute_warp_window([raw["coord"][i] for i in
+                                         range(bsz)], box, face, face,
+                                        margin=16)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in raw.items()}
+    return cfg, geo, batch
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_server_kernel_path_matches_plain(cuda, dtype):
+    """MultiSpeakerServer on the card: two identities over two offsets,
+    K1/K2/K3 1/1/5 launches an identity, against the plain path; plain on
+    the card raises."""
+    from speech2lip_tpu_torch.infer import pipeline
+
+    cfg, geo, batch = _serving_setup(cuda)
+    sets = [weights.random_params(s, cfg=cfg) for s in (0, 1)]
+    pos = [(geo["lip_x"], geo["lip_y"]), (geo["lip_x"] - 2, geo["lip_y"])]
+    srv = pipeline.MultiSpeakerServer(cfg, sets, pos, device=cuda,
+                                      compute_dtype=dtype,
+                                      window=geo["window"])
+    kmlp.launches = kws.launches = kfb.launches = 0
+    outs = srv.render_all([batch, batch])
+    torch.cuda.synchronize()
+    assert (kmlp.launches, kws.launches, kfb.launches) == (2, 2, 10)
+    kmlp.launches = kws.launches = kfb.launches = 0
+    for i in range(len(pos)):
+        ref = srv.render_plain(i, batch)
+        assert _rel_err(outs[i]["face"], ref["face"]) < BOUND[dtype]
+    assert (kmlp.launches, kws.launches, kfb.launches) == (0, 0, 0)
+    with pytest.raises(ValueError, match="use_kernels=False"):
+        pipeline.MultiSpeakerServer(cfg, sets, pos, device=cuda,
+                                    use_kernels=False)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_pose_edit_kernel_path_matches_plain(cuda, dtype):
+    """PoseEditRenderer (render_pose_edited_batch with K1 and K3) against
+    its plain path on the card (the same float32 warp on both); the warp
+    itself against the CPU's: a share of pixels at most may round to
+    another target."""
+    from speech2lip_tpu_torch.infer import pose_edit
+
+    cfg, geo, batch = _serving_setup(cuda)
+    cfg["model"]["compute_dtype"] = str(dtype).replace("torch.", "")
+    cfg["data"]["face_img_focal"] = geo["focal"]
+    params = weights.random_params(2, device=cuda, cfg=cfg)
+    depth = params[0]["canonical_depth"]     # the geometry reads float32
+    r = pose_edit.PoseEditRenderer(cfg, *params, lip_h=32, lip_w=32,
+                                   edit="euler", axis=1, value=0.1,
+                                   device=cuda)
+    kmlp.launches = kfb.launches = 0
+    got = r(batch, geo["lip_x"], geo["lip_y"])["face"]
+    torch.cuda.synchronize()
+    assert (kmlp.launches, kfb.launches) == (1, 5)
+    ref = r.render_plain(batch, geo["lip_x"], geo["lip_y"])["face"]
+    assert _rel_err(got, ref) < BOUND[dtype]
+    img = batch["rgb_face_zero"]
+    rel = pose_edit.edited_rel_pose(batch["canonical_euler"],
+                                    batch["canonical_trans"], "euler", 1, 0.1)
+    w_card = pose_edit.forward_warp_to_pose(img, depth, rel, geo["focal"])
+    w_cpu = pose_edit.forward_warp_to_pose(img.cpu(), depth.cpu(), rel.cpu(),
+                                           geo["focal"])
+    off = (w_card.cpu() != w_cpu).any(-1).float().mean()
+    assert float(off) <= 0.01
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_static_renderer_kernel_path_matches_render_plain(cuda, dtype):
+    """StaticSceneRenderer on the card at a 224^2 face (a 184x216 crop, K3
+    at a non-square shape): K1/K2/K3 1/1/5 a batch, against render_plain
+    on its own parameters and scene."""
+    from speech2lip_tpu_torch.infer.static_scene import StaticSceneRenderer
+
+    cfg, geo, batch = _serving_setup(cuda, face=224)
+    params = weights.random_params(3, cfg=cfg)
+    base = {k: batch[k][0] for k in ("rgb_face_zero", "rgb_face_ori",
+                                     "mask_lip_canonical", "coord")}
+    r = StaticSceneRenderer(cfg, *params, base, geo["window"], geo["lip_x"],
+                            geo["lip_y"], device=cuda, compute_dtype=dtype)
+    assert (r.geo["ch"], r.geo["cw"]) == (184, 216)
+    t = torch.arange(3, dtype=torch.float32, device=cuda)
+    kmlp.launches = kws.launches = kfb.launches = 0
+    got = r(batch["audio"], t)
+    torch.cuda.synchronize()
+    assert (kmlp.launches, kws.launches, kfb.launches) == (1, 1, 5)
+    assert _rel_err(got, r.render_plain(batch["audio"], t)) < BOUND[dtype]

@@ -186,7 +186,7 @@ mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in mods:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
-assert len(mods) >= 48, mods
+assert len(mods) >= 59, mods
 
 def banned(name):
     top = name.split(".")[0]

@@ -140,11 +140,12 @@ def test_kernel_path_on_cpu_runs_plain_versions(params):
     assert not torch.equal(fast, full)
 
 
-def test_kernel_path_matches_jax_align_corners(params):
+def _jax_align_corners(params):
     """The kernel path's crop (K3 semantics: align-corners upsampling on the
-    non-square crop) against JAX: its plain composite in float32, its plain
+    non-square crop) in JAX: its plain composite in float32, its plain
     align-corners ``unet_light.apply`` on the same crop, the interior
-    pasted into the full frame's output of the canonical scene."""
+    pasted into the full frame's output of the canonical scene.  Returns
+    (reference, inputs, time indices, the JAX renderer's crop geometry)."""
     import jax.numpy as jnp
 
     from speech2lip_tpu.models import unet_light as junet
@@ -169,6 +170,13 @@ def test_kernel_path_matches_jax_align_corners(params):
     ref = np.repeat(np.asarray(ref), B, axis=0)
     ref[:, g["iy0"]:g["iy0"] + g["ih"], g["ix0"]:g["ix0"] + g["iw"]] = \
         np.asarray(out)[:, y0:y0 + g["ih"], x0:x0 + g["iw"]]
+    return ref, raw, t, g
+
+
+def test_kernel_path_matches_jax_align_corners(params):
+    """The kernel path in bf16 against the JAX align-corners reference in
+    float32 (``_jax_align_corners``)."""
+    ref, raw, t, g = _jax_align_corners(params)
     r, _ = _port(params, 160, use_kernels=True)
     assert r.geo == g
     got = r(raw["audio"], t).numpy()
@@ -176,6 +184,27 @@ def test_kernel_path_matches_jax_align_corners(params):
     # float32: the measured gap is 0.0048 of max|ref|
     err = float(np.max(np.abs(got - ref))) / float(np.max(np.abs(ref)))
     assert err < 2e-2, err
+
+
+def test_render_plain_is_the_align_corners_path(params):
+    """``render_plain``, the reference the card's kernel path is held to,
+    is the JAX align-corners path in float32 to 1e-5 and launches nothing;
+    so is the kernel path in float32 (the wrappers' plain versions)."""
+    ref, raw, t, g = _jax_align_corners(params)
+    _, geo, window, base = _scene(160)
+    cfg = default_config()
+    cfg["data"].update(height=LIP_H, width=LIP_W)
+    r = tss.StaticSceneRenderer(cfg, *weights.from_jax(*params), base,
+                                window, geo["lip_x"], geo["lip_y"],
+                                device="cpu", use_kernels=True,
+                                compute_dtype=torch.float32)
+    assert r.geo == g and r.compute_dtype == torch.float32
+    before = _launches()
+    plain = r.render_plain(raw["audio"], t).numpy()
+    assert _launches() == before
+    np.testing.assert_allclose(plain, ref, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(r(raw["audio"], t).numpy(), ref, rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_renderers_default_to_the_card(params, monkeypatch):
