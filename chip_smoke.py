@@ -39,6 +39,14 @@ made from a seed:
   --change_pose --export_video (K1 and K3 a batch, the AVI's frames), a
   batch on its pose renderer against the plain path, the splat on the
   card against the CPU;
+- evaluation and the sync teacher on that identity: cli/train_syncnet
+  (60 steps, batch 8, lr 3e-4; the loss must fall below 0.55 and by 0.1,
+  and the teacher must score the ground-truth windows at offset 0 with a
+  confidence above 0.05), cli/evaluate --lms-from-fan --sync of the
+  rendered val frames on the card against the CPU, and
+  tools/convergence_run at May width (teacher, fit across the sync
+  boundary, three cli/infer renders and their scores; K1, K2, K3 and K7
+  launches by part, a finite report);
 - the dot probe's tool (speech2lip_tpu_torch.tools.bench_int8_dot) at its
   full shape and its own count of calls: one warm-up and ITERS timed K8
   dot_probe calls in bf16 and in int8, its outputs against the plain
@@ -384,7 +392,7 @@ def loop_launches(tr: dict, its, val_frames: int) -> dict:
         n["hat_sample_dgrid"] += 1
         if it % tr["validate_every"] == 0:
             n["fused_mlp"] += val_frames
-        if it % tr["visualize_every"] == 0:
+        if tr["visualize_every"] > 0 and it % tr["visualize_every"] == 0:
             n["fused_mlp"] += 1
     return n
 
@@ -608,6 +616,7 @@ def user_loop(dev, card: str, tmp: str) -> dict:
             "the served checkpoint's face disagrees with the plain path")
     out["cli_infer_err"] = e
     out["identity"] = path
+    out["rendered"] = os.path.join(tmp, res["out_dir"])
     return out
 
 
@@ -962,6 +971,212 @@ def new_audio(dev, card: str, tmp: str, identity: str) -> dict:
         f"at {share:.3%} of pixels (cap {POSE_WARP_SHARE:.0%})")
     require(share <= POSE_WARP_SHARE, "the pose warp on the card differs "
             "from the CPU's at too many pixels")
+    return out
+
+
+# the evaluation slice on phase 6's identity: the SyncNet teacher trained
+# through cli/train_syncnet (the JAX package's heavy test's settings and
+# bars), cli/evaluate of phase 6's rendered frames on the card against the
+# CPU, and tools/convergence_run at May width
+TEACHER_ARGS = ["--steps", "60", "--batch", "8", "--lr", "3e-4"]
+# cli/evaluate, card vs CPU: (relative, absolute) bound per metric; the
+# other keys must be equal
+EVAL_BOUNDS = {"psnr": (1e-9, 0), "ssim": (1e-9, 0), "cpbd": (1e-9, 0),
+               "lmd": (0, 1e-3), "sync_conf": (0, 1e-4)}
+CONV_ARGS = ["--face", str(FACE), "--lip-h", str(LIP_H), "--lip-w",
+             str(LIP_W), "--frames", "48", "--val-frames", "8", "--iters",
+             "8", "--validate-every", "4", "--sync-start-iter", "4",
+             "--pretrain-teacher", "60", "--batch", str(TRAIN_B), "--dtype",
+             "bfloat16"]
+EVAL_PATHS = ("convergence_fit", "convergence_infer")
+# the JAX tool's report keys, in its order (tests/test_torch_convergence.py
+# reads them from tools/convergence_run.py)
+CONVERGENCE_KEYS = [
+    "geometry", "iters", "batch", "compute_dtype", "train_seconds",
+    "val_psnr_trajectory", "best_checkpoint_selected",
+    "rendered_val_metrics", "backend", "sync_start_iter",
+    "teacher_pretrain_steps", "teacher_bce_history", "presync_val_metrics",
+    "postsync_val_metrics", "loss_sync_trajectory", "postsync_psnr_drop_db",
+    "sync_conf_delta"]
+
+
+def finite(x) -> bool:
+    """Every number in a JSON-like tree is finite."""
+    if isinstance(x, dict):
+        return all(finite(v) for v in x.values())
+    if isinstance(x, list):
+        return all(finite(v) for v in x)
+    if isinstance(x, float):
+        return x == x and abs(x) != float("inf")
+    return True
+
+
+def evaluation(dev, card: str, tmp: str, loop: dict) -> dict:
+    """Phase 8 in the directory ``tmp`` on phase 6's identity and frames:
+    8a cli/train_syncnet (the learning bars, the teacher's sync confidence
+    on the ground-truth windows, unit-norm embeddings), 8b cli/evaluate
+    --lms-from-fan --sync on the card and on the CPU, 8c
+    tools/convergence_run with its launches by part.  Returns the launches
+    by path and the timings."""
+    import contextlib
+    import os
+
+    from speech2lip_tpu_torch import weights
+    from speech2lip_tpu_torch.cli import evaluate as cli_evaluate
+    from speech2lip_tpu_torch.cli import train_syncnet as cli_train_syncnet
+    from speech2lip_tpu_torch.config import load_config, save_config
+    from speech2lip_tpu_torch.core import checkpoint as ckpt
+    from speech2lip_tpu_torch.models import syncnet
+    from speech2lip_tpu_torch.ops.kernels import fused_block as kfb
+    from speech2lip_tpu_torch.ops.kernels import fused_mlp as kmlp
+    from speech2lip_tpu_torch.ops.kernels import hat_sample as khs
+    from speech2lip_tpu_torch.ops.kernels import window_sample as kws
+    from speech2lip_tpu_torch.tools import convergence_run
+    from speech2lip_tpu_torch.train import metrics_eval as me
+    from speech2lip_tpu_torch.train.syncnet_pretrain import build_sync_arrays
+
+    def reset():
+        kmlp.launches = kws.launches = kfb.launches = 0
+        khs.dsrc_launches = khs.dgrid_launches = 0
+
+    def counts():
+        return {"window_sample": kws.launches,
+                "hat_sample_dsrc": khs.dsrc_launches,
+                "hat_sample_dgrid": khs.dgrid_launches,
+                "fused_mlp": kmlp.launches, "fused_block": kfb.launches}
+
+    out = {}
+    cfg = load_config(loop["identity"])
+
+    # -- 8a: the teacher ------------------------------------------------------
+    teacher = os.path.join(tmp, "syncnet_teacher.ckpt")
+    windows, mels = build_sync_arrays(cfg)
+    t0 = time.perf_counter()      # the build again, warm, as the CLI runs it
+    build_sync_arrays(cfg)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hist = cli_train_syncnet.main([loop["identity"], "--out", teacher,
+                                   *TEACHER_ARGS])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = int(TEACHER_ARGS[1])
+    out["teacher_ms_per_step"] = 1e3 * (wall - build_s) / steps
+    out["teacher_wall_s"] = wall
+    log(f"# evaluation: cli/train_syncnet {' '.join(TEACHER_ARGS)} on "
+        f"{len(windows)} windows in {wall:.2f} s (the arrays' build "
+        f"{build_s:.2f} s of it): {out['teacher_ms_per_step']:.1f} ms a "
+        f"step, the first included; bce {[round(h, 4) for h in hist]} on "
+        f"{card}")
+    require(hist[-1] < hist[0] - 0.1 and hist[-1] < 0.55,
+            f"the teacher did not learn: bce {hist}")
+    tree = ckpt.load(teacher, like=weights.init_syncnet(0, dev))[0]
+    with torch.no_grad():
+        conf, offset = me.sync_confidence(*tree, torch.from_numpy(mels),
+                                          torch.from_numpy(windows))
+        a, v = syncnet.apply(*tree, torch.from_numpy(mels[:2]).to(dev)[
+            ..., None], torch.from_numpy(windows[:2]).to(dev))
+        ae, ve = me.embed(*tree, torch.from_numpy(mels),
+                          torch.from_numpy(windows))
+    near = [round(float((ve[max(0, -o):len(ve) - max(0, o)]
+                         * ae[max(0, o):len(ae) - max(0, -o)]).sum(1).mean()),
+                  4) for o in range(-3, 4)]
+    norms = torch.cat([a.norm(dim=1), v.norm(dim=1)])
+    log(f"# evaluation: teacher on the ground-truth windows: sync conf "
+        f"{conf:.4f} at offset {offset} (mean cosine at offsets -3..3: "
+        f"{near}); embedding norms {float(norms.min()):.6f}.."
+        f"{float(norms.max()):.6f}")
+    require(conf > 0.05 and offset == 0, f"the teacher does not separate "
+            f"matched audio: conf {conf}, offset {offset}")
+    require(bool(((norms - 1).abs() <= 1e-4).all()),
+            "the teacher's embeddings are not unit-norm")
+    out["teacher_bce"] = hist
+    out["teacher_conf"] = conf
+
+    # -- 8b: cli/evaluate of phase 6's frames, card vs CPU -------------------
+    ecfg = dict(cfg, training=dict(cfg["training"], syncnet_weights=teacher))
+    epath = os.path.join(tmp, "evaluate.yaml")
+    save_config(epath, ecfg)
+    n_train = len(os.listdir(os.path.join(cfg["data"]["path"],
+                                          "ori_images_face"))) \
+        - cfg["data"]["val_split_frames"]
+    argv = ["--pred", loop["rendered"], "--gt",
+            os.path.join(cfg["data"]["path"], "ori_images_face"),
+            "--offset", str(n_train), "--lms-from-fan", "--sync",
+            "--config", epath]
+    res = {}
+    for tag, extra in (("card", []), ("card", []), ("cpu",
+                                                     ["--device", "cpu"])):
+        t0 = time.perf_counter()
+        res[tag] = cli_evaluate.main(argv + extra)
+        dt = time.perf_counter() - t0
+        out[f"evaluate_{tag}_fps"] = res[tag]["n_frames"] / dt
+    for tag in ("card", "cpu"):
+        log(f"# evaluation: cli/evaluate --lms-from-fan --sync on "
+            f"{tag}: {res[tag]['n_frames']} frames at {FACE}^2, "
+            f"{out[f'evaluate_{tag}_fps']:.2f} frames/s"
+            f"{' (second call)' if tag == 'card' else ''}; "
+            f"{json.dumps(res[tag])} on {card}")
+    got, want = res["card"], res["cpu"]
+    require(set(got) == set(want) and got["lmd_detector"] == "tiny"
+            and got["n_frames"] == cfg["data"]["val_split_frames"],
+            f"cli/evaluate keys {sorted(got)} vs {sorted(want)}")
+    for k, w in want.items():
+        g = got[k]
+        if k in EVAL_BOUNDS:
+            rel, ab = EVAL_BOUNDS[k]
+            ok = abs(g - w) <= max(rel * abs(w), ab)
+        else:
+            ok = g == w
+        require(ok, f"cli/evaluate {k}: card {g} vs cpu {w}")
+    out["evaluate"] = got
+    out["evaluate_err"] = {k: abs(got[k] - want[k]) for k in EVAL_BOUNDS}
+    log(f"# evaluation: card vs CPU |diff| {out['evaluate_err']} (bounds "
+        f"{EVAL_BOUNDS}, relative / absolute)")
+
+    # -- 8c: tools/convergence_run at May width ------------------------------
+    parts = {}
+
+    @contextlib.contextmanager
+    def part(name):
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        parts[name] = {"s": time.perf_counter() - t0, "launches": counts()}
+
+    conv_dir = os.path.join(tmp, "convergence")
+    t0 = time.perf_counter()
+    report = convergence_run.main(["--out", conv_dir, *CONV_ARGS],
+                                  part=part)
+    out["convergence_s"] = time.perf_counter() - t0
+    for name, p in parts.items():
+        log(f"# evaluation: convergence_run {name}: {p['s']:.2f} s, "
+            f"launches {p['launches']} on {card}")
+    conv_cfg = load_config(os.path.join(conv_dir, "config.yaml"))
+    tr, val = conv_cfg["training"], conv_cfg["data"]["val_split_frames"]
+    want = {"teacher": loop_launches(tr, [], val),
+            "fit": loop_launches(tr, range(1, report["iters"] + 1), val)}
+    n_batches = -(-val // TRAIN_B)
+    for r in ("convergence", "conv_presync", "conv_postsync"):
+        want[f"infer:{r}"] = {"window_sample": n_batches,
+                              "hat_sample_dsrc": 0, "hat_sample_dgrid": 0,
+                              "fused_mlp": n_batches,
+                              "fused_block": 5 * n_batches}
+        want[f"evaluate:{r}"] = loop_launches(tr, [], val)
+    got = {k: p["launches"] for k, p in parts.items()}
+    require(got == want, f"convergence_run launches {got}, expected {want}")
+    require(finite(report) and report["best_checkpoint_selected"]
+            and list(report) == CONVERGENCE_KEYS,
+            f"convergence report: {json.dumps(report)[:2000]}")
+    log(f"# evaluation: convergence_run report {json.dumps(report)}")
+    out["convergence_fit"] = got["fit"]
+    out["convergence_infer"] = {
+        k: sum(got[f"infer:{r}"][k] for r in ("convergence", "conv_presync",
+                                                "conv_postsync"))
+        for k in got["fit"]}
+    out["convergence_parts"] = {k: p["s"] for k, p in parts.items()}
+    out["convergence_report"] = report
     return out
 
 
@@ -1575,6 +1790,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         loop = user_loop(dev, card, tmp)
         na = new_audio(dev, card, tmp, loop["identity"])
+        # -- phase 8: evaluation and the sync teacher on phase 6's identity
+        ev = evaluation(dev, card, tmp, loop)
 
     # -- phase 3e: the dot probe's tool at its full shape -----------------
     # kdp.launches counts dot_probe calls that reached the card; an int8
@@ -1984,6 +2201,8 @@ def main() -> int:
                    if loop[p].get(name)}
         by_path.update({p: na[p][name] for p in NEW_AUDIO_PATHS
                         if na[p].get(name)})
+        by_path.update({p: ev[p][name] for p in EVAL_PATHS
+                        if ev[p].get(name)})
         kernels.append({"name": name, "route": "cuda",
                         "source": f"speech2lip_tpu_torch/csrc/{source}",
                         "replaces": pallas + replaces, "path": path,
@@ -2039,6 +2258,19 @@ def main() -> int:
         f"{na['pose_fps']:.1f} frames/s end to end, render "
         f"{na['pose_render_fps']:.1f} frames/s; kernels vs plain "
         f"{na['pose_err']:.3g} on {card}")
+    log(f"# SyncNet teacher, cli/train_syncnet {' '.join(TEACHER_ARGS)}: "
+        f"{ev['teacher_ms_per_step']:.1f} ms a step, bce "
+        f"{ev['teacher_bce'][0]:.4f} -> {ev['teacher_bce'][-1]:.4f}, sync "
+        f"conf {ev['teacher_conf']:.4f} on {card}")
+    log(f"# cli/evaluate --lms-from-fan --sync at {FACE}^2: "
+        f"{ev['evaluate_card_fps']:.2f} frames/s on the card, "
+        f"{ev['evaluate_cpu_fps']:.2f} on the CPU; card vs CPU "
+        f"{ev['evaluate_err']} on {card}")
+    by_part = ", ".join(f"{k} {v:.2f}"
+                        for k, v in ev["convergence_parts"].items())
+    log(f"# convergence_run at May width: {ev['convergence_s']:.1f} s, by "
+        f"part (s): {by_part}; launches fit {ev['convergence_fit']}, infer "
+        f"{ev['convergence_infer']} on {card}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

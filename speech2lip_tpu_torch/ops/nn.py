@@ -8,6 +8,8 @@ permutes inside each function.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
@@ -135,3 +137,19 @@ def leaky_relu(x, negative_slope: float = 0.02):
 
 def relu(x):
     return torch.clamp_min(x, 0)
+
+
+@contextlib.contextmanager
+def full_float32():
+    """Float32 convolutions and matmuls inside the block run without TF32
+    (cuDNN and cuBLAS), as the CPU computes them; the previous settings are
+    restored after it."""
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev

@@ -207,9 +207,9 @@ def syncnet_from_jax(params_np, state_np, device="cpu"):
     return params, state
 
 
-def random_syncnet(seed: int = 0, device="cpu"):
-    """SyncNet weights made from a seed: convs as the JAX package's
-    ``init``, BatchNorm at a random eval state."""
+def _syncnet(seed: int, bn, device):
+    """A SyncNet tree made from a seed: convs as the JAX package's
+    ``init``, each block's BatchNorm from ``bn(rng, channels)``."""
     from speech2lip_tpu_torch.models.syncnet import AUDIO_SPEC, FACE_SPEC
     rng = np.random.default_rng(seed)
     u = _uniform(rng)
@@ -217,7 +217,7 @@ def random_syncnet(seed: int = 0, device="cpu"):
     for name, spec, c in (("face", FACE_SPEC, 15), ("audio", AUDIO_SPEC, 1)):
         params[name], state[name] = [], []
         for out_ch, (kh, kw), _, _, _ in spec:
-            bn_p, bn_s = _random_bn(rng, out_ch)
+            bn_p, bn_s = bn(rng, out_ch)
             params[name].append({
                 "conv": {"w": u((kh, kw, c, out_ch), kh * kw * c),
                          "b": u((out_ch,), kh * kw * c)},
@@ -225,6 +225,24 @@ def random_syncnet(seed: int = 0, device="cpu"):
             state[name].append({"bn": bn_s})
             c = out_ch
     return syncnet_from_jax(params, state, device)
+
+
+def random_syncnet(seed: int = 0, device="cpu"):
+    """SyncNet weights made from a seed: convs as the JAX package's
+    ``init``, BatchNorm at a random eval state (a frozen net's)."""
+    return _syncnet(seed, _random_bn, device)
+
+
+def init_syncnet(seed: int = 0, device="cpu"):
+    """A SyncNet to train, made from a seed with the JAX package's
+    ``init`` distribution: convs and biases uniform(+-1/sqrt(fan_in)),
+    BatchNorm at scale 1, bias 0, mean 0, var 1."""
+    def fresh_bn(_, c):
+        return ({"scale": np.ones(c, np.float32),
+                 "bias": np.zeros(c, np.float32)},
+                {"mean": np.zeros(c, np.float32),
+                 "var": np.ones(c, np.float32)})
+    return _syncnet(seed, fresh_bn, device)
 
 
 _DS_LINEARS = ("fc1", "fc2", "fc3", "fc5", "fc6")

@@ -186,7 +186,10 @@ mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in mods:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
-assert len(mods) >= 59, mods
+assert len(mods) >= 65, mods
+assert {pkg.__name__ + "." + m for m in (
+    "models.tiny_landmarks", "train.metrics_eval", "train.syncnet_pretrain",
+    "cli.evaluate", "cli.train_syncnet", "tools.convergence_run")} <= set(mods)
 
 def banned(name):
     top = name.split(".")[0]
@@ -209,4 +212,4 @@ print(len(files))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 49
+    assert int(res.stdout.split()[-1]) >= 66
