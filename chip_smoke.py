@@ -47,6 +47,16 @@ made from a seed:
   tools/convergence_run at May width (teacher, fit across the sync
   boundary, three cli/infer renders and their scores; K1, K2, K3 and K7
   launches by part, a finite report);
+- preprocessing at full width: a Basel-sized synthetic 3DMM (34,650
+  vertices) rendered at 500^2 in 50 frames with their true landmarks, an
+  AVI, seeded FAN (4 modules), DSFD (ResNet-152), S3FD, BiSeNet and
+  DeepSpeech; every cli/preprocess step on the card (extract, landmarks
+  with DSFD and with S3FD, track, warp, uv_mapping, masks, crop_lip,
+  audio_features) with the tracker's budgets cut by --track_scale, the
+  artifact contract, the landmark loss falling, find_focal on a
+  3-candidate grid, and the rasterizer, the four nets and a landmark phase
+  on the card against the CPU (float32, TF32 off); no port kernel runs
+  there;
 - the dot probe's tool (speech2lip_tpu_torch.tools.bench_int8_dot) at its
   full shape and its own count of calls: one warm-up and ITERS timed K8
   dot_probe calls in bf16 and in int8, its outputs against the plain
@@ -1180,6 +1190,361 @@ def evaluation(dev, card: str, tmp: str, loop: dict) -> dict:
     return out
 
 
+# preprocessing at full width: a Basel-sized synthetic 3DMM (34,650
+# vertices, id 100 / exp 79 / tex 100) rendered at 500^2 at known poses,
+# N frames (the reference's key-frame batch), seeded FAN (4 modules), DSFD
+# (ResNet-152 depths), S3FD, BiSeNet and DeepSpeech at their published
+# widths, every step through cli/preprocess on the card.  Cut in depth
+# only: the tracker's budgets by PRE_TRACK_SCALE, find_focal to a
+# 3-candidate grid at that scale
+PRE_N, PRE_SIZE, PRE_FOCAL = 50, 500, 1000.0
+PRE_TRACK_SCALE = 0.1
+PRE_FOCAL_GRID = dict(lo=900, hi=1200, step=100)      # 900, 1000, 1100
+# card vs CPU, float32 with TF32 off: the nets within 1e-4 of max|CPU|,
+# the rasterizer's ids on >= 99.9% of pixels and bary / zbuf within 1e-5
+# where they agree; the landmark phases' step-0 gradients within 1e-6
+# relative, the parameters after 1 step of phase a and 20 of phase b within
+# 1e-4 (phase a's lr-1 steps amplify rounding ~20x a step: logged)
+PRE_NET_BOUND, PRE_RASTER_SHARE, PRE_RASTER_BOUND = 1e-4, 0.999, 1e-5
+PRE_LMS_STEPS, PRE_LMS_BOUND, PRE_GRAD_BOUND = 20, 1e-4, 1e-6
+PRE_PACK = {"id": (1, 100), "exp": (PRE_N, 79), "euler": (PRE_N, 3),
+            "trans": (PRE_N, 3), "focal": (), "tex": (1, 100),
+            "light": (PRE_N, 27)}
+
+
+def kernel_launches() -> dict:
+    """Every launch counter of the port's kernels."""
+    from speech2lip_tpu_torch.ops.kernels import conv_block as kcb
+    from speech2lip_tpu_torch.ops.kernels import conv_hcw as kch
+    from speech2lip_tpu_torch.ops.kernels import dot_probe as kdp
+    from speech2lip_tpu_torch.ops.kernels import fused_block as kfb
+    from speech2lip_tpu_torch.ops.kernels import fused_mlp as kmlp
+    from speech2lip_tpu_torch.ops.kernels import hat_sample as khs
+    from speech2lip_tpu_torch.ops.kernels import window_sample as kws
+    return {"fused_mlp": kmlp.launches, "window_sample": kws.launches,
+            "fused_block": kfb.launches, "hat_sample_dsrc": khs.dsrc_launches,
+            "hat_sample_dgrid": khs.dgrid_launches,
+            "conv3x3_hcw": kch.conv3x3_launches,
+            "double_conv_hcw": kch.double_conv_launches,
+            "conv3x3_infer": kcb.launches, "dot_probe": kdp.launches}
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def landmark_phases(assets, lms, device) -> dict:
+    """The landmark phases' numbers one device gives, as numpy: the step-0
+    gradients of phase a (pose from the tracker's start) and of phase b
+    (all four from the start with id and exp at 0.01), the parameters
+    after 1 and PRE_LMS_STEPS steps of phase a and after PRE_LMS_STEPS of
+    phase b."""
+    from speech2lip_tpu_torch.ops import nn as tnn
+    from speech2lip_tpu_torch.preprocess import tracker as tt
+
+    size, n = PRE_SIZE, lms.shape[0]
+    tr = tt.FaceTracker(assets, lms, tt.TrackerConfig(img_h=size,
+                                                      img_w=size),
+                        device=device)
+    p = tr._start(n)
+    pb = dict(p, id=p["id"] + 0.01, exp=p["exp"] + 0.01)
+    loss_a = lambda q: tr.landmark_loss(dict(p, **q), tr.lms, PRE_FOCAL)
+    loss_b = lambda q: (tr.landmark_loss(q, tr.lms, PRE_FOCAL)
+                        + 0.5 * torch.mean(q["id"] ** 2)
+                        + 0.4 * torch.mean(q["exp"] ** 2))
+    host = lambda ts: [t.detach().cpu().numpy() for t in ts]
+    out = {}
+    with tnn.full_float32():
+        for tag, fn, start in (("a", loss_a, {k: p[k] for k in
+                                               ("euler", "trans")}),
+                               ("b", loss_b, pb)):
+            q = {k: v.clone().requires_grad_(True) for k, v in start.items()}
+            out[f"grad_{tag}"] = host(torch.autograd.grad(fn(q),
+                                                          list(q.values())))
+        opt_a, opt_b = tt.schedule(1.0, {1000: 0.1}), tt.schedule(
+            0.1, {1000: 0.2})
+        for tag, k in (("a1", 1), ("a20", PRE_LMS_STEPS)):
+            got = tt.adam_loop(loss_a, {k_: p[k_] for k_ in ("euler",
+                                                             "trans")},
+                               {"euler": opt_a, "trans": opt_a}, k)
+            out[tag] = {k_: v.cpu().numpy() for k_, v in got.items()}
+        got = tt.adam_loop(loss_b, pb, {k_: opt_b for k_ in pb},
+                           PRE_LMS_STEPS)
+        out["b20"] = {k_: v.cpu().numpy() for k_, v in got.items()}
+    return out
+
+
+def preprocessing(dev, card: str, tmp: str) -> dict:
+    """Phase 9 in the directory ``tmp``: 9a the world, 9b every step of
+    cli/preprocess on the card, 9c the artifact contract, 9d the nets, the
+    rasterizer and a landmark phase on the card against the CPU.  Returns
+    the timings."""
+    import os
+
+    import cv2
+    import numpy as np
+
+    from speech2lip_tpu_torch import weights
+    from speech2lip_tpu_torch.cli import preprocess as cli_pre
+    from speech2lip_tpu_torch.core import checkpoint as ckpt
+    from speech2lip_tpu_torch.models import bisenet, dsfd, fan, s3fd
+    from speech2lip_tpu_torch.ops import nn as tnn
+    from speech2lip_tpu_torch.ops.rasterize import rasterize
+    from speech2lip_tpu_torch.preprocess import face_3dmm as bfm
+    from speech2lip_tpu_torch.preprocess import synthetic_world as sw
+    from speech2lip_tpu_torch.preprocess.landmarks import _crop_resize
+    from speech2lip_tpu_torch.preprocess.tracker import (FaceTracker,
+                                                         TrackerConfig)
+    from speech2lip_tpu_torch.preprocess.video_io import write_avi
+
+    out = {}
+    cpu = torch.device("cpu")
+    n, size = PRE_N, PRE_SIZE
+    log(f"# preprocessing: cuts in depth only: {n} frames, tracker budgets "
+        f"x{PRE_TRACK_SCALE} (--track_scale), find_focal on "
+        f"{PRE_FOCAL_GRID}; widths, {size}^2 frames and the nets' depths as "
+        "published")
+
+    # -- 9a: the world ------------------------------------------------------
+    t0 = time.perf_counter()
+    assets = bfm.synthetic_assets(n_verts=34650, id_dim=100, exp_dim=79,
+                                  tex_dim=100, seed=SEED, device=dev)
+    assets_dir = os.path.join(tmp, "assets")
+    bfm.save_reference_schema(assets, assets_dir)
+    root = os.path.join(tmp, "identity")
+    world = sw.make_raw_identity(root, assets, n, size, PRE_FOCAL)
+    from scipy.io import wavfile
+    sr, wav = wavfile.read(os.path.join(root, "audio", "audio.wav"))
+    video = os.path.join(tmp, "clip.avi")
+    write_avi(video, list(world["frames"]), fps=25.0, audio=wav,
+              sample_rate=sr)
+    wdir, wdir_s3fd = os.path.join(tmp, "w"), os.path.join(tmp, "w_s3fd")
+    nets = {"fan": weights.random_fan(SEED, n_modules=4, device=dev),
+            "dsfd": weights.random_dsfd(SEED + 1, device=dev),
+            "s3fd": weights.random_s3fd(SEED + 2, device=dev),
+            "bisenet": weights.random_bisenet(SEED + 3, device=dev)}
+    for d, names in ((wdir, ("fan", "dsfd", "bisenet")),
+                     (wdir_s3fd, ("fan", "s3fd"))):
+        for name in names:
+            tree = nets[name]
+            ckpt.save(os.path.join(d, name + ".ckpt"), tree if name ==
+                      "s3fd" else {"params": tree[0], "state": tree[1]})
+    out["world_s"] = time.perf_counter() - t0
+    log(f"# preprocessing: world ({assets.tris.shape[0]} faces, {n} frames "
+        f"at {size}^2, focal {PRE_FOCAL}, max pixel "
+        f"{int(world['frames'].max())}), the AVI and the weights in "
+        f"{out['world_s']:.1f} s")
+
+    # -- 9b: every step through cli/preprocess on the card -------------------
+    base = ["--root", root, "--assets", assets_dir, "--crop_size", str(size),
+            "--focal", str(PRE_FOCAL), "--track_scale", str(PRE_TRACK_SCALE)]
+    summaries = {}
+    before = kernel_launches()
+
+    def run(tag, step, wd, *extra):
+        t0 = time.perf_counter()
+        s = cli_pre.main([step, "--weights_dir", wd, *base, *extra])
+        torch.cuda.synchronize()
+        s["wall_s"] = time.perf_counter() - t0
+        summaries[tag] = s
+        log(f"# preprocessing: cli/preprocess {step}"
+            f"{' (' + tag + ')' if tag != step else ''}: "
+            f"{s['wall_s']:.2f} s wall, {s['frames'][step]} frames, "
+            f"{json.dumps({k: v for k, v in s.items() if k not in ('steps', 'frames')})} "
+            f"on {card}")
+        return s
+
+    run("extract", "extract", wdir, "--video", video)
+    require(len(os.listdir(os.path.join(root, "ori_images"))) == n,
+            "extract: frame count")
+    run("landmarks_dsfd", "landmarks", wdir)
+    run("landmarks_s3fd", "landmarks", wdir_s3fd)
+    sw.write_lms(root, world["lms"])   # random nets give arbitrary points
+    for step in ("track", "warp", "uv_mapping", "masks", "crop_lip",
+                 "audio_features"):
+        run(step, step, wdir)
+    require(kernel_launches() == before,
+            "a port kernel launched on the preprocessing path")
+
+    # -- 9c: the artifact contract -------------------------------------------
+    def files(d, ext):
+        return sorted(f for f in os.listdir(os.path.join(root, d))
+                      if f.endswith(ext))
+    require(len(files("warp_images", ".jpg")) == n, "warp_images count")
+    coords = files("coords", ".npy")
+    require(len(coords) == n, "coords count")
+    for f in coords:
+        c = np.load(os.path.join(root, "coords", f))
+        require(c.shape == (size, size, 2) and np.isfinite(c).all()
+                and np.abs(c).max() <= 1.0, f"coords {f}")
+    depth = np.load(os.path.join(root, "depth_face_canonical.npy"))
+    require(depth.shape == (size, size) and np.isfinite(depth).all()
+            and (depth > 0).any(), "depth_face_canonical")
+    for name in ("canonical_face_mask.jpg", "canonical_head_mask.jpg",
+                 "canonical_lip_mask.jpg", "canonical_face_parsing.jpg"):
+        img = cv2.imread(os.path.join(root, name))
+        require(img is not None and img.shape[:2] == (size, size), name)
+    lips = files("images", ".jpg")
+    require(len(lips) == n and all(cv2.imread(os.path.join(
+        root, "images", f)).shape == (LIP_H, LIP_W, 3) for f in lips),
+        "lip crops")
+    track = dict(np.load(os.path.join(root, "track_params.pt.npz")))
+    require(set(track) == set(PRE_PACK) and all(
+        track[k].shape == s and np.isfinite(track[k]).all()
+        for k, s in PRE_PACK.items()), f"track_params keys / shapes "
+        f"{ {k: v.shape for k, v in track.items()} }")
+    aud = np.load(os.path.join(root, "audio", "audio.npy"))
+    require(aud.ndim == 3 and aud.shape[1:] == (16, 29)
+            and np.isfinite(aud).all(), f"audio.npy {aud.shape}")
+    bbox = np.load(os.path.join(root, "face_bbox_dict.npy"),
+                   allow_pickle=True).item()
+    require(len(bbox) == n and all(v.shape == (5,) for v in bbox.values()),
+            "face_bbox_dict rows")
+    lms_files = files("landmarks", ".lms")
+    require(len(lms_files) == n, "landmarks count")
+    log(f"# preprocessing: artifacts at {size}^2: {n} warp_images, coords "
+        f"[{size}, {size}, 2] |c| <= 1, depth + 3 masks + parsing, {n} lip "
+        f"crops {LIP_W}x{LIP_H}, track_params "
+        f"{ {k: v.shape for k, v in track.items()} }, audio.npy "
+        f"{aud.shape}, face_bbox_dict rows of 5 (S3FD run: e.g. "
+        f"{bbox['00001.jpg'].tolist()})")
+
+    # the landmark phases at the CLI's budgets: the loss must fall
+    ts = PRE_TRACK_SCALE
+    cfg = TrackerConfig(img_h=size, img_w=size,
+                        iters_pose=max(1, int(1500 * ts)),
+                        iters_idexp=max(1, int(2000 * ts)))
+    tr = FaceTracker(assets, world["lms"], cfg, device=dev)
+    with tnn.full_float32():
+        lms_fit = tr.fit(PRE_FOCAL)
+        start = {k: v.to(dev) for k, v in tr._start(n).items()}
+        fitted = {k: torch.as_tensor(lms_fit[k], device=dev)
+                  for k in start}
+        loss0 = float(tr.landmark_loss(start, tr.lms, PRE_FOCAL))
+        loss1 = float(tr.landmark_loss(fitted, tr.lms, PRE_FOCAL))
+    log(f"# preprocessing: landmark loss {loss0:.4f} at the start, "
+        f"{loss1:.4f} after phases a/b ({cfg.iters_pose} + "
+        f"{cfg.iters_idexp} steps)")
+    require(loss1 < loss0, "the landmark phases did not lower the loss")
+    t0 = time.perf_counter()
+    with tnn.full_float32():
+        focal = FaceTracker(assets, world["lms"], TrackerConfig(
+            img_h=size, img_w=size,
+            iters_focal_pose=max(1, int(2000 * ts)),
+            iters_focal_idexp=max(1, int(2500 * ts))),
+            device=dev).find_focal(**PRE_FOCAL_GRID)
+    torch.cuda.synchronize()
+    out["find_focal_s"] = time.perf_counter() - t0
+    log(f"# preprocessing: find_focal on {PRE_FOCAL_GRID}: {focal} (true "
+        f"{PRE_FOCAL}) in {out['find_focal_s']:.2f} s on {card}")
+    require(focal in (900.0, 1000.0, 1100.0), f"find_focal gave {focal}")
+
+    # -- 9d: card against the CPU, float32 with TF32 off ---------------------
+    truth = {k: torch.as_tensor(v, device=dev)
+             for k, v in world["truth"].items()}
+    with torch.no_grad():
+        geo = bfm.forward_geo(assets, truth["id"], truth["exp"][:1])
+        rott = bfm.rot_trans_pts(geo, bfm.euler2rot(truth["euler"][:1]),
+                                 truth["trans"][:1])
+        pix = bfm.camera_pixels(rott, PRE_FOCAL, size, size)[0]
+    frags = {}
+    for d in (dev, cpu):
+        t0 = time.perf_counter()
+        frags[d.type] = rasterize(pix.to(d), assets.tris.to(d), size, size)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        out[f"raster_{d.type}_ms"] = 1e3 * (time.perf_counter() - t0)
+    fc, fp = frags["cuda"], frags["cpu"]
+    same = (fc.pix_to_face.cpu() == fp.pix_to_face)
+    hit = same & torch.isfinite(fp.zbuf)
+    bary_err = float((fc.bary.cpu() - fp.bary)[same].abs().max())
+    z_err = float((fc.zbuf.cpu() - fp.zbuf)[hit].abs().max())
+    out["overflow"] = int(fc.overflow)
+    log(f"# preprocessing: rasterize one {size}^2 frame "
+        f"({assets.tris.shape[0]} faces, tile 16, K 128): card "
+        f"{out['raster_cuda_ms']:.1f} ms, CPU {out['raster_cpu_ms']:.1f} "
+        f"ms; ids equal on {float(same.float().mean()):.6f} of pixels, "
+        f"bary {bary_err:.3g}, zbuf {z_err:.3g} where equal; overflow card "
+        f"{int(fc.overflow)} CPU {int(fp.overflow)} (dropped (tile, face) "
+        f"pairs at the tracker's default raster settings)")
+    require(float(same.float().mean()) >= PRE_RASTER_SHARE
+            and bary_err <= PRE_RASTER_BOUND and z_err <= PRE_RASTER_BOUND
+            and int(fc.overflow) == int(fp.overflow),
+            "rasterize: card vs CPU")
+
+    frame = torch.as_tensor(world["frames"][0].astype(np.float32),
+                            device=dev)
+    crop = torch.as_tensor(_crop_resize(world["frames"][0].astype(
+        np.float32) / 255.0, (0, 0, size, size))[0], device=dev)
+    cases = {
+        "fan": (lambda p, x: fan.apply(*p, x), nets["fan"], crop[None]),
+        "s3fd": (lambda p, x: [t for pair in s3fd.apply(p, x) for t in pair],
+                 nets["s3fd"], frame[None]),
+        "dsfd": (lambda p, x: [t for pair in dsfd.apply(*p, x)
+                               for t in pair], nets["dsfd"], frame[None]),
+        "bisenet": (lambda p, x: [bisenet.apply(*p, x)], nets["bisenet"],
+                    tnn.resize_linear(frame[None] / 255.0, 512, 512))}
+    out["nets"] = {}
+    for name, (fn, params, x) in cases.items():
+        with torch.no_grad(), tnn.full_float32():
+            got = fn(params, x)
+            ms = cuda_ms(lambda: fn(params, x), iters=3, warmup=1)
+            pc, xc = tree_to(params, cpu), x.cpu()
+            t0 = time.perf_counter()
+            want = fn(pc, xc)
+            cpu_ms = 1e3 * (time.perf_counter() - t0)
+        # each output against its own largest magnitude
+        ratio = max(float((g.cpu() - w).abs().max())
+                    / max(float(w.abs().max()), 1e-30)
+                    for g, w in zip(got, want))
+        out["nets"][name] = {"ms": ms, "cpu_ms": cpu_ms, "rel_err": ratio}
+        log(f"# preprocessing: {name} forward on {tuple(x.shape)}: card "
+            f"{ms:.2f} ms, CPU {cpu_ms:.1f} ms; max|card - CPU| / max|CPU| "
+            f"{ratio:.3g} over its {len(want)} outputs (bound "
+            f"{PRE_NET_BOUND}) on {card}")
+        require(ratio <= PRE_NET_BOUND, f"{name}: card vs CPU")
+
+    lm = {d.type: landmark_phases(bfm.assets_to(assets, d), world["lms"],
+                                  d) for d in (dev, cpu)}
+    c, h = lm["cuda"], lm["cpu"]
+    rel = lambda a, b: max(float(np.abs(x - y).max() / np.abs(y).max())
+                           for x, y in zip(a, b))
+    diff = lambda a, b: max(float(np.abs(a[k] - b[k]).max()) for k in b)
+    out["lms_grad0"] = max(rel(c["grad_a"], h["grad_a"]),
+                           rel(c["grad_b"], h["grad_b"]))
+    out["lms_a1"], out["lms_b20"] = diff(c["a1"], h["a1"]), diff(c["b20"],
+                                                                 h["b20"])
+    out["lms_a20"] = diff(c["a20"], h["a20"])
+    log(f"# preprocessing: landmark phases at full width ({n} frames), card "
+        f"vs CPU: step-0 gradients of phases a and b {out['lms_grad0']:.3g} "
+        f"relative (bound {PRE_GRAD_BOUND}); parameters after 1 step of "
+        f"phase a {out['lms_a1']:.3g}, after {PRE_LMS_STEPS} steps of "
+        f"phase b {out['lms_b20']:.3g} (bound {PRE_LMS_BOUND}); after "
+        f"{PRE_LMS_STEPS} steps of phase a {out['lms_a20']:.3g}, logged: its "
+        "lr-1 Adam steps of ~1 rad amplify float32 rounding ~20x a step")
+    require(out["lms_grad0"] <= PRE_GRAD_BOUND
+            and out["lms_a1"] <= PRE_LMS_BOUND
+            and out["lms_b20"] <= PRE_LMS_BOUND,
+            "landmark phases: card vs CPU")
+
+    # -- 9e: rates ------------------------------------------------------------
+    tt = summaries["track"]["track_timings"]
+    out["summaries"] = summaries
+    out["lms_step_ms"] = 1e3 * tt["phase_a_pose"] / max(1, int(1500 * ts))
+    out["photo_iter_ms"] = 1e3 * tt["phase_c_photometric"] / max(
+        1, int(71 * ts))
+    out["landmarks_fps"] = n / summaries["landmarks_dsfd"]["seconds"][
+        "landmarks"]
+    out["landmarks_s3fd_fps"] = n / summaries["landmarks_s3fd"]["seconds"][
+        "landmarks"]
+    out["warp_fps"] = n / summaries["warp"]["seconds"]["warp"]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's smoke runs "
@@ -1792,6 +2157,9 @@ def main() -> int:
         na = new_audio(dev, card, tmp, loop["identity"])
         # -- phase 8: evaluation and the sync teacher on phase 6's identity
         ev = evaluation(dev, card, tmp, loop)
+    # -- phase 9: preprocessing at full width through cli/preprocess -------
+    with tempfile.TemporaryDirectory() as tmp:
+        pre = preprocessing(dev, card, tmp)
 
     # -- phase 3e: the dot probe's tool at its full shape -----------------
     # kdp.launches counts dot_probe calls that reached the card; an int8
@@ -2271,6 +2639,17 @@ def main() -> int:
     log(f"# convergence_run at May width: {ev['convergence_s']:.1f} s, by "
         f"part (s): {by_part}; launches fit {ev['convergence_fit']}, infer "
         f"{ev['convergence_infer']} on {card}")
+    steps = pre["summaries"]
+    log("# preprocessing wall s by cli/preprocess step: " + ", ".join(
+        f"{k} {v['wall_s']:.2f}" for k, v in steps.items())
+        + f"; tracker phases (s) {steps['track']['track_timings']}; "
+        f"{pre['lms_step_ms']:.2f} ms a landmark Adam step, "
+        f"{pre['photo_iter_ms']:.1f} ms a photometric iteration ({PRE_N} "
+        f"frames at {PRE_SIZE}^2); landmarks (DSFD + FAN) "
+        f"{pre['landmarks_fps']:.2f} frames/s, (S3FD + FAN) "
+        f"{pre['landmarks_s3fd_fps']:.2f}, warp {pre['warp_fps']:.1f} "
+        f"frames/s; find_focal (3 candidates) {pre['find_focal_s']:.2f} s; "
+        f"rasterizer overflow {pre['overflow']} on {card}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,12 +10,13 @@ Scores a rendered directory against ground truth and prints one JSON line
 of metric values (``main`` also returns it).  Frames go to the device in
 batches; it is the card unless ``--device`` names another.
 
-``--lms-from-fan`` scores LMD with the repository's distilled detector
-(``models/tiny_landmarks.ckpt``, ``lmd_detector: "tiny"``) where no FAN
-weights file exists at the given path, as the JAX CLI does.  The FAN
-detector itself (a weights file present, or neither file) is not ported
-yet and raises ``NotImplementedError``; LMD is never scored with another
-detector than the JAX CLI would use.
+``--lms-from-fan`` scores LMD with a landmark detector on both frame sets,
+as the JAX CLI chooses it: the FAN with the weights at the given path (the
+JAX CLI's ``(params, state)`` tuple file, or a ``{"params", "state"}``
+one), else the repository's distilled detector
+(``models/tiny_landmarks.ckpt``, ``lmd_detector: "tiny"``), else a random
+FAN (``"fan-random"``: ``weights.random_fan(0)``, another random net than
+the JAX CLI's ``fan.init(PRNGKey(0))``).
 """
 
 from __future__ import annotations
@@ -103,40 +104,68 @@ def main(argv=None):
     return out
 
 
+def _fan_weights(path: str, device):
+    """A FAN weights file: the JAX CLI's ``(params, state)`` tuple layout
+    (keys ``0/...``, ``1/...``) or the preprocessing CLI's {"params",
+    "state"}."""
+    from speech2lip_tpu_torch import weights
+    from speech2lip_tpu_torch.core import checkpoint as ckpt
+    tree, _ = ckpt.load_nested(path)
+    if isinstance(tree, dict) and "params" in tree:
+        tree = (tree["params"], tree["state"])
+    if not isinstance(tree, (list, tuple)) or len(tree) != 2:
+        raise ValueError(f"{path}: not a FAN (params, state) file")
+    return weights.fan_from_jax(tree[0], tree[1], device)
+
+
 def _lmd_from_detector(args, pred_files, gt_of, device):
-    """LMD through the distilled tiny detector on both frame sets (the JAX
-    CLI's choice where no FAN weights file exists)."""
+    """LMD through a landmark detector on both frame sets: the FAN of the
+    weights file, else the distilled tiny detector, else a random FAN (the
+    JAX CLI's order).  The FAN sees each whole frame as the face box."""
     import numpy as np
     import torch
 
+    from speech2lip_tpu_torch import weights
     from speech2lip_tpu_torch.models import tiny_landmarks as tl
     from speech2lip_tpu_torch.ops.nn import full_float32
+    from speech2lip_tpu_torch.preprocess.landmarks import detect_landmarks
     from speech2lip_tpu_torch.train import metrics_eval as me
 
     if os.path.exists(args.lms_from_fan):
-        raise NotImplementedError(
-            f"LMD with the FAN weights '{args.lms_from_fan}': the FAN "
-            "detector is not ported yet (ROADMAP A7)")
-    if not os.path.exists(tl.CKPT):
-        raise NotImplementedError(
-            f"LMD with a random-init FAN (no '{args.lms_from_fan}', no "
-            f"{tl.CKPT}): the FAN detector is not ported yet (ROADMAP A7)")
-    print("# LMD detector: models/tiny_landmarks.ckpt (distilled "
-          "in-repo; self-consistent, not the published-FAN protocol)")
-    params = tl.load(tl.CKPT, device)
+        fan_p, fan_s = _fan_weights(args.lms_from_fan, device)
+        detector = "fan"
+    elif os.path.exists(tl.CKPT):
+        print("# LMD detector: models/tiny_landmarks.ckpt (distilled "
+              "in-repo; self-consistent, not the published-FAN protocol)")
+        params = tl.load(tl.CKPT, device)
+        detector = "tiny"
+    else:
+        print(f"# WARNING: FAN weights '{args.lms_from_fan}' not found: a "
+              "random FAN, weights.random_fan(0) (LMD measures pred/GT "
+              "consistency through one detector; not comparable to the "
+              "published protocol, nor to the JAX CLI's random FAN)")
+        fan_p, fan_s = weights.random_fan(0, device=device)
+        detector = "fan-random"
 
     def lms_of(d, names):
         out = []
         for s in range(0, len(names), CHUNK):
             imgs = np.stack([_read(os.path.join(d, f), rgb=True)
                              for f in names[s:s + CHUNK]])
-            x = torch.from_numpy(imgs.astype(np.float32) / 255.0).to(device)
+            imgs = imgs.astype(np.float32) / 255.0
             with torch.no_grad(), full_float32():
-                out.append(tl.detect(params, x))
+                if detector == "tiny":
+                    out.append(tl.detect(params, torch.from_numpy(imgs).to(
+                        device)))
+                    continue
+                h, w = imgs.shape[1:3]
+                out.append(torch.from_numpy(np.stack([
+                    detect_landmarks(fan_p, fan_s, img, (0, 0, w, h),
+                                     device) for img in imgs])).to(device))
         return torch.cat(out)
 
     lmd = me.lmd(lms_of(args.pred, pred_files), lms_of(args.gt, gt_of))
-    return float(lmd), "tiny"
+    return float(lmd), detector
 
 
 def _sync_score(args, device):

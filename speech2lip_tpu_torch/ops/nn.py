@@ -24,12 +24,36 @@ def linear(params, x):
     return x @ w + b
 
 
-def conv2d(params, x, stride=1, padding=1):
-    """x: [B, H, W, C]; kernel HWIO; ``stride`` an int or (sh, sw),
-    symmetric zero ``padding`` an int or (ph, pw)."""
+def _same_padding(n: int, k: int, s: int, d: int):
+    """XLA's ``padding="SAME"`` along one axis: (before, after), the odd
+    pixel after."""
+    total = max((-(-n // s) - 1) * s + (k - 1) * d + 1 - n, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d(params, x, stride=1, padding=1, dilation=1):
+    """x: [B, H, W, C]; kernel HWIO; ``stride`` and ``dilation`` an int or
+    (sh, sw).  ``padding``: symmetric zero padding as an int or (ph, pw),
+    per side as ((top, bottom), (left, right)), or ``"SAME"`` as XLA pads
+    it (uneven where a stride needs it)."""
     w = params["w"].permute(3, 2, 0, 1)
-    y = F.conv2d(x.permute(0, 3, 1, 2), w, params.get("b"), stride=stride,
-                 padding=padding)
+    st = (stride, stride) if isinstance(stride, int) else tuple(stride)
+    dl = (dilation, dilation) if isinstance(dilation, int) else tuple(dilation)
+    if isinstance(padding, str):
+        if padding != "SAME":
+            raise ValueError(f"unsupported padding {padding!r}")
+        padding = tuple(_same_padding(n, k, s, d) for n, k, s, d in zip(
+            x.shape[1:3], params["w"].shape[:2], st, dl))
+    xc = x.permute(0, 3, 1, 2)
+    if isinstance(padding, (tuple, list)) and not isinstance(padding[0], int):
+        (pt, pb), (pl, pr) = padding
+        if pt == pb and pl == pr:
+            padding = (pt, pl)
+        else:
+            xc = F.pad(xc, (pl, pr, pt, pb))
+            padding = 0
+    y = F.conv2d(xc, w, params.get("b"), stride=st, padding=padding,
+                 dilation=dl)
     return y.permute(0, 2, 3, 1)
 
 

@@ -291,3 +291,322 @@ def random_deepspeech(seed: int = 0, input_dim: int = 494, hidden: int = 2048,
             "lstm_bw": lstm(2 * hidden), "fc5": lin(2 * hidden, hidden),
             "fc6": lin(hidden, n_logits)}
     return deepspeech_from_jax(tree, device)
+
+
+# -- the preprocessing nets: FAN, S3FD, DSFD, BiSeNet -------------------------
+
+def _check_convs(tree, what: str, path: str = ""):
+    """Every conv of a tree is HWIO (4-D ``w``, optional ``b`` of its out
+    width) and every BatchNorm's params hold {scale, bias}."""
+    if isinstance(tree, list):
+        for i, t in enumerate(tree):
+            _check_convs(t, what, f"{path}[{i}]")
+        return
+    if not isinstance(tree, dict):
+        return
+    if "w" in tree:
+        w = tree["w"]
+        _expect(w.ndim == 4, f"{what} {path}.w must be HWIO")
+        _expect("b" not in tree or tuple(tree["b"].shape) == (w.shape[3],),
+                f"{what} {path}.b must match {path}.w's out width")
+        return
+    if "scale" in tree:
+        # a BatchNorm's {scale, bias}, or an L2 norm's {scale}
+        _expect(set(tree) in ({"scale", "bias"}, {"scale"}),
+                f"{what} {path} must be a BatchNorm's {{scale, bias}}")
+        return
+    for k, v in tree.items():
+        _check_convs(v, what, f"{path}.{k}" if path else k)
+
+
+def _check_bn_state(state, what: str, path: str = ""):
+    if isinstance(state, list):
+        for i, s in enumerate(state):
+            _check_bn_state(s, what, f"{path}[{i}]")
+    elif isinstance(state, dict):
+        if "mean" in state or "var" in state:
+            _expect(set(state) == {"mean", "var"},
+                    f"{what} {path} BatchNorm state must be {{mean, var}}")
+            return
+        for k, v in state.items():
+            _check_bn_state(v, what, f"{path}.{k}" if path else k)
+
+
+def _kernel(tree, shape, what: str):
+    _expect(tuple(tree["w"].shape) == tuple(shape),
+            f"{what} must be HWIO {tuple(shape)}")
+
+
+def fan_from_jax(params_np, state_np, device="cpu"):
+    """The JAX FAN (params, state) trees (``fan.ckpt``'s {"params",
+    "state"}, or ``fan.init``'s pair as numpy) -> the port's, float32."""
+    from speech2lip_tpu_torch.models import fan
+    params = _tree(params_np, device, torch.float32)
+    state = _tree(state_np, device, torch.float32)
+    _expect(isinstance(params, dict) and {"conv1", "bn1", "hg", "top",
+                                          "pred"} <= set(params),
+            "fan params must hold conv1, bn1, hg, top, pred")
+    for k in ("bl", "al"):   # empty for one module: absent from a file
+        params.setdefault(k, [])
+    _check_convs(params, "fan")
+    _check_bn_state(state, "fan")
+    _kernel(params["conv1"], (7, 7, 3, 64), "fan conv1")
+    n = len(params["hg"])
+    _expect(n >= 1 and all(len(params[k]) == n for k in
+                           ("top", "conv_last", "bn_end", "pred"))
+            and len(params["bl"]) == len(params["al"]) == n - 1
+            and len(state["hg"]) == n,
+            "fan must hold one hg / top / conv_last / bn_end / pred per "
+            "module and one bl / al between modules")
+    for m in range(n):
+        _kernel(params["pred"][m], (1, 1, fan.HG_FEATS, fan.N_LANDMARKS),
+                f"fan pred[{m}]")
+        _expect(f"up1_{fan.HG_DEPTH}" in params["hg"][m]
+                and "low2_1" in params["hg"][m],
+                f"fan hg[{m}] must be a depth-{fan.HG_DEPTH} hourglass")
+    return params, state
+
+
+def s3fd_from_jax(params_np, device="cpu"):
+    """The JAX S3FD params tree (``s3fd.ckpt``) -> the port's, float32."""
+    from speech2lip_tpu_torch.models import s3fd
+    params = _tree(params_np, device, torch.float32)
+    _check_convs(params, "s3fd")
+    for item in s3fd.VGG:
+        if item != "M":
+            name, cin, cout = item
+            _kernel(params[name], (3, 3, cin, cout), f"s3fd {name}")
+    for name, cin, cout, k in s3fd.EXTRA:
+        _kernel(params[name], (k, k, cin, cout), f"s3fd {name}")
+    for i, s in enumerate(s3fd.SOURCES):
+        ch = s3fd.SOURCE_CH[s]
+        _kernel(params[f"cls_{s}"], (3, 3, ch, 4 if i == 0 else 2),
+                f"s3fd cls_{s}")
+        _kernel(params[f"reg_{s}"], (3, 3, ch, 4), f"s3fd reg_{s}")
+    for s in s3fd.L2_SCALES:
+        _expect(tuple(params[s + "_l2"]["scale"].shape)
+                == (params[s]["w"].shape[3],), f"s3fd {s}_l2 scale width")
+    return params
+
+
+def dsfd_from_jax(params_np, state_np, device="cpu"):
+    """The JAX DSFD (params, state) trees -> the port's, float32; any
+    stage depths (ResNet-152's are (3, 8, 36, 3))."""
+    from speech2lip_tpu_torch.models import dsfd
+    params = _tree(params_np, device, torch.float32)
+    state = _tree(state_np, device, torch.float32)
+    _check_convs(params, "dsfd")
+    _check_bn_state(state, "dsfd")
+    _kernel(params["stem"]["conv"], (7, 7, 3, 64), "dsfd stem")
+    cin = 64
+    for li, cout in enumerate(dsfd.STAGE_CH):
+        blocks = params[f"layer{li + 1}"]
+        _expect(len(blocks) >= 1 and len(state[f"layer{li + 1}"])
+                == len(blocks), f"dsfd layer{li + 1} must hold its blocks")
+        for bi, blk in enumerate(blocks):
+            c = cin if bi == 0 else cout
+            _kernel(blk["c1"]["conv"], (1, 1, c, cout // 4),
+                    f"dsfd layer{li + 1}[{bi}].c1")
+            _kernel(blk["c3"]["conv"], (1, 1, cout // 4, cout),
+                    f"dsfd layer{li + 1}[{bi}].c3")
+            _expect(("down" in blk) == (bi == 0),
+                    f"dsfd layer{li + 1}: a projection on block 0 only")
+        cin = cout
+    for i, ch in enumerate(dsfd.SOURCE_CH):
+        _kernel(params[f"fem{i}"]["cpm1"], (3, 3, ch, 256), f"dsfd fem{i}")
+        _kernel(params[f"cls{i}"], (3, 3, dsfd.FEM_CH, 4 if i == 0 else 2),
+                f"dsfd cls{i}")
+        _kernel(params[f"reg{i}"], (3, 3, dsfd.FEM_CH, 4), f"dsfd reg{i}")
+    return params, state
+
+
+def bisenet_from_jax(params_np, state_np, device="cpu"):
+    """The JAX BiSeNet (params, state) trees -> the port's, float32."""
+    from speech2lip_tpu_torch.models import bisenet
+    params = _tree(params_np, device, torch.float32)
+    state = _tree(state_np, device, torch.float32)
+    _check_convs(params, "bisenet")
+    _check_bn_state(state, "bisenet")
+    _kernel(params["stem"]["conv"], (7, 7, 3, 64), "bisenet stem")
+    for name, _, cout in bisenet.LAYERS:
+        _expect(len(params[name]) == 2 and len(state[name]) == 2,
+                f"bisenet {name} must hold two blocks")
+        _kernel(params[name][1]["c2"]["conv"], (3, 3, cout, cout),
+                f"bisenet {name}[1].c2")
+    _kernel(params["ffm"]["conv"], (1, 1, 256, 256), "bisenet ffm")
+    _expect(params["out_final"]["w"].shape[:3] == (1, 1, 256),
+            "bisenet out_final must be a 1x1 conv of 256 channels")
+    return params, state
+
+
+class _Nets:
+    """Seeded numpy leaves in the JAX ``init``s' shapes: convs and biases
+    uniform(+-1/sqrt(fan_in)), BatchNorm at a random eval state."""
+
+    def __init__(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+        self.u = _uniform(self.rng)
+
+    def conv(self, cin, cout, k, bias=True):
+        fan_in = k * k * cin
+        p = {"w": self.u((k, k, cin, cout), fan_in)}
+        if bias:
+            p["b"] = self.u((cout,), fan_in)
+        return p
+
+    def bn(self, c):
+        return _random_bn(self.rng, c)
+
+    def conv_bn(self, cin, cout, k):
+        bp, bs = self.bn(cout)
+        return {"conv": self.conv(cin, cout, k, bias=False), "bn": bp}, \
+            {"bn": bs}
+
+
+def _fan_tree(r: _Nets, n_modules: int):
+    from speech2lip_tpu_torch.models import fan
+
+    def brc(cin, cout, k):
+        bp, bs = r.bn(cin)
+        return {"bn": bp, "conv": r.conv(cin, cout, k, bias=False)}, \
+            {"bn": bs}
+
+    def block(cin, cout):
+        p, s = {}, {}
+        for name, (i, o) in (("b1", (cin, cout // 2)),
+                             ("b2", (cout // 2, cout // 4)),
+                             ("b3", (cout // 4, cout // 4))):
+            p[name], s[name] = brc(i, o, 3)
+        if cin != cout:
+            p["down"], s["down"] = brc(cin, cout, 1)
+        return p, s
+
+    f = fan.HG_FEATS
+    params, state = {"conv1": r.conv(3, 64, 7)}, {}
+    params["bn1"], state["bn1"] = r.bn(64)
+    for name, cin, cout in (("conv2", 64, 128), ("conv3", 128, 128),
+                            ("conv4", 128, f)):
+        params[name], state[name] = block(cin, cout)
+    for k in ("hg", "top", "conv_last", "bn_end", "pred", "bl", "al"):
+        params[k] = []
+    for k in ("hg", "top", "bn_end"):
+        state[k] = []
+    for m in range(n_modules):
+        hp, hs = {}, {}
+        for d in range(1, fan.HG_DEPTH + 1):
+            for tag in ("up1", "low1", "low3"):
+                hp[f"{tag}_{d}"], hs[f"{tag}_{d}"] = block(f, f)
+        hp["low2_1"], hs["low2_1"] = block(f, f)
+        params["hg"].append(hp)
+        state["hg"].append(hs)
+        tp, tsd = block(f, f)
+        params["top"].append(tp)
+        state["top"].append(tsd)
+        params["conv_last"].append(r.conv(f, f, 1))
+        bp, bs = r.bn(f)
+        params["bn_end"].append(bp)
+        state["bn_end"].append(bs)
+        params["pred"].append(r.conv(f, fan.N_LANDMARKS, 1))
+        if m < n_modules - 1:
+            params["bl"].append(r.conv(f, f, 1))
+            params["al"].append(r.conv(fan.N_LANDMARKS, f, 1))
+    return params, state
+
+
+def random_fan(seed: int = 0, n_modules: int = 4, device="cpu"):
+    """A FAN (params, state) made from a seed, in ``fan.init``'s shapes."""
+    return fan_from_jax(*_fan_tree(_Nets(seed), n_modules), device)
+
+
+def random_s3fd(seed: int = 0, device="cpu"):
+    """S3FD params made from a seed, in ``s3fd.init``'s shapes."""
+    from speech2lip_tpu_torch.models import s3fd
+    r = _Nets(seed)
+    params = {}
+    for item in s3fd.VGG:
+        if item != "M":
+            name, cin, cout = item
+            params[name] = r.conv(cin, cout, 3)
+    for name, cin, cout, k in s3fd.EXTRA:
+        params[name] = r.conv(cin, cout, k)
+    for s, scale in s3fd.L2_SCALES.items():
+        params[s + "_l2"] = {"scale": np.full(
+            (params[s]["w"].shape[-1],), scale, np.float32)}
+    for i, s in enumerate(s3fd.SOURCES):
+        ch = s3fd.SOURCE_CH[s]
+        params[f"cls_{s}"] = r.conv(ch, 4 if i == 0 else 2, 3)
+        params[f"reg_{s}"] = r.conv(ch, 4, 3)
+    return s3fd_from_jax(params, device)
+
+
+def random_dsfd(seed: int = 0, depths=(3, 8, 36, 3), device="cpu"):
+    """A DSFD (params, state) made from a seed, in ``dsfd.init``'s shapes
+    (ResNet-152 depths unless given)."""
+    from speech2lip_tpu_torch.models import dsfd
+    r = _Nets(seed)
+    params, state = {}, {}
+    params["stem"], state["stem"] = r.conv_bn(3, 64, 7)
+    cin = 64
+    for li, (n, cout) in enumerate(zip(depths, dsfd.STAGE_CH)):
+        bps, bss = [], []
+        for bi in range(n):
+            c, cmid = (cin if bi == 0 else cout), cout // 4
+            bp, bs = {}, {}
+            for name, (i, o, k) in (("c1", (c, cmid, 1)),
+                                    ("c2", (cmid, cmid, 3)),
+                                    ("c3", (cmid, cout, 1))):
+                bp[name], bs[name] = r.conv_bn(i, o, k)
+            if bi == 0:
+                bp["down"], bs["down"] = r.conv_bn(c, cout, 1)
+            bps.append(bp)
+            bss.append(bs)
+        params[f"layer{li + 1}"], state[f"layer{li + 1}"] = bps, bss
+        cin = cout
+    for name, c1, c2, c3 in dsfd.EXTRA:
+        (pa, sa), (pb, sb) = r.conv_bn(c1, c2, 1), r.conv_bn(c2, c3, 3)
+        params[name], state[name] = {"a": pa, "b": pb}, {"a": sa, "b": sb}
+    for name, ci, co in dsfd.FPN:
+        params[name] = r.conv(ci, co, 1)
+    for i, cs in enumerate(dsfd.SOURCE_CH):
+        params[f"fem{i}"] = {
+            "cpm1": r.conv(cs, 256, 3), "cpm2": r.conv(cs, 256, 3),
+            "cpm3": r.conv(256, 128, 3), "cpm4": r.conv(256, 128, 3),
+            "cpm5": r.conv(128, 128, 3)}
+        params[f"cls{i}"] = r.conv(dsfd.FEM_CH, 4 if i == 0 else 2, 3)
+        params[f"reg{i}"] = r.conv(dsfd.FEM_CH, 4, 3)
+    return dsfd_from_jax(params, state, device)
+
+
+def random_bisenet(seed: int = 0, device="cpu"):
+    """A BiSeNet (params, state) made from a seed, in ``bisenet.init``'s
+    shapes."""
+    from speech2lip_tpu_torch.models import bisenet
+    r = _Nets(seed)
+    params, state = {}, {}
+    params["stem"], state["stem"] = r.conv_bn(3, 64, 7)
+    for name, cin, cout in bisenet.LAYERS:
+        bps, bss = [], []
+        for i in range(2):
+            c = cin if i == 0 else cout
+            bp, bs = {}, {}
+            bp["c1"], bs["c1"] = r.conv_bn(c, cout, 3)
+            bp["c2"], bs["c2"] = r.conv_bn(cout, cout, 3)
+            if c != cout:
+                bp["down"], bs["down"] = r.conv_bn(c, cout, 1)
+            bps.append(bp)
+            bss.append(bs)
+        params[name], state[name] = bps, bss
+    for name, cin in (("arm16", 256), ("arm32", 512)):
+        cp, cs = r.conv_bn(cin, 128, 3)
+        ap, as_ = r.bn(128)
+        params[name] = {"conv": cp, "atten": r.conv(128, 128, 1, bias=False),
+                        "atten_bn": ap}
+        state[name] = {"conv": cs, "atten_bn": as_}
+    for name, cin, cout, k in (("head32", 128, 128, 3),
+                               ("head16", 128, 128, 3), ("avg", 512, 128, 1),
+                               ("ffm", 256, 256, 1), ("out", 256, 256, 3)):
+        params[name], state[name] = r.conv_bn(cin, cout, k)
+    params["ffm_a1"] = r.conv(256, 64, 1, bias=False)
+    params["ffm_a2"] = r.conv(64, 256, 1, bias=False)
+    params["out_final"] = r.conv(256, bisenet.N_CLASSES, 1, bias=False)
+    return bisenet_from_jax(params, state, device)

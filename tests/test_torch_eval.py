@@ -274,15 +274,31 @@ def test_cli_evaluate_matches_jax(scored, case, monkeypatch, capsys):
         assert want["sync_conf"] != 0
 
 
-def test_cli_evaluate_fan_weights_raise(scored, tmp_path):
-    """A FAN weights file at the path: the FAN detector is not ported, so
-    the CLI raises rather than score LMD with another detector."""
-    fan = tmp_path / "fan.ckpt"
-    fan.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="A7"):
+def test_cli_evaluate_fan_weights_raise(scored):
+    """A weights file at the FAN path that holds no FAN (here the SyncNet
+    teacher's (params, state) file): the CLI raises rather than score LMD
+    with another detector."""
+    with pytest.raises(ValueError, match="fan"):
         tevaluate.main(["--pred", scored["pred"], "--gt", scored["gt"],
-                        "--offset", "8", "--lms-from-fan", str(fan),
-                        "--device", "cpu"])
+                        "--offset", "8", "--lms-from-fan",
+                        scored["teacher"], "--device", "cpu"])
+
+
+def test_cli_evaluate_lmd_through_fan_matches_jax(scored, tmp_path,
+                                                  monkeypatch, capsys):
+    """LMD through the FAN of a weights file in the JAX CLI's (params,
+    state) tuple layout (keys 0/..., 1/...): the port's CLI against the
+    JAX CLI, 1e-3 px."""
+    from speech2lip_tpu.models import fan as jfan
+    fan_path = str(tmp_path / "fan.ckpt")
+    jckpt.save(fan_path, jfan.init(jax.random.PRNGKey(4)))
+    argv = ["--pred", scored["pred"], "--gt", scored["gt"], "--offset", "8",
+            "--max-frames", "2", "--lms-from-fan", fan_path]
+    want = _run_jax(argv, monkeypatch, capsys)
+    got = tevaluate.main(argv + ["--device", "cpu"])
+    assert want["lmd_detector"] == got["lmd_detector"] == "fan"
+    assert got["lmd"] == pytest.approx(want["lmd"], abs=1e-3)
+    assert got["lmd"] > 0
 
 
 def test_cli_evaluate_without_teacher_says_so(scored, tmp_path, capsys):
