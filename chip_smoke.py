@@ -57,6 +57,20 @@ made from a seed:
   3-candidate grid, and the rasterizer, the four nets and a landmark phase
   on the card against the CPU (float32, TF32 off); no port kernel runs
   there;
+- the user's tools: the reference's weight files at published widths
+  (model_may.pt at May geometry, SyncNet, AlexNet + the LPIPS heads, FAN
+  with 4 modules, DSFD on ResNet-152, S3FD, BiSeNet, a DeepSpeech .npz),
+  made from seeds in their names and blob layouts, through
+  tools/convert_weights --all (and the .npz by its positional form), each
+  converted net on the card against the CPU, DSFD on i.i.d. noise against
+  a float64 forward, and a Renderer batch of the converted talking face
+  against the plain path; tools/full_pipeline_run at May width (24 frames
+  of a raw AVI of a 34,650-vertex 3DMM through every cli/preprocess step,
+  fit in bfloat16 at batch 8 until model_best.ckpt is selected, cli/infer,
+  cli/evaluate) with K1, K2, K3 and K7 launches by step and the first
+  batch of cli/infer's own renderer against the plain path;
+  tools/bench_train in its default mode (K2 / K7 launches a step) and
+  tools/bench_components at batch 32 (each stage against its plain path);
 - the dot probe's tool (speech2lip_tpu_torch.tools.bench_int8_dot) at its
   full shape and its own count of calls: one warm-up and ITERS timed K8
   dot_probe calls in bf16 and in int8, its outputs against the plain
@@ -338,43 +352,11 @@ def graph_launches(run) -> dict:
 
 def train_inputs(dev, b, face, lip_h, lip_w, with_sync=False):
     """A synthetic training batch on ``dev`` as the trainer hands it to the
-    step: the canonical face and masks are per-identity constants (one
-    frame's, broadcast), the blackaug branch's static warps are made from
-    them, the warp window is validated; plus seeded parameters and frozen
-    nets.  Returns (batch, geo, window, params, frozen)."""
-    import numpy as np
-
-    from speech2lip_tpu_torch import weights
-    from speech2lip_tpu_torch.data.synthetic import synthetic_batch
-    from speech2lip_tpu_torch.data.windows import compute_warp_window
-    from speech2lip_tpu_torch.models import talking_face as tf
-    from speech2lip_tpu_torch.ops.grid_sample import grid_sample
-    from speech2lip_tpu_torch.train import trainer
-
-    raw, geo = synthetic_batch(b, face=face, lip_h=lip_h, lip_w=lip_w,
-                               seed=SEED, with_sync=with_sync)
-    for k in ("rgb_face_zero", "mask_head_canonical", "mask_face_canonical"):
-        raw[k] = np.broadcast_to(raw[k][:1], raw[k].shape).copy()
-    box = tf.expanded_lip_box(lip_h, lip_w, geo["lip_x"], geo["lip_y"])
-    window = compute_warp_window([raw["coord"][i] for i in range(b)], box,
-                                 face, face, margin=MARGIN)
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
-    batch["warped_base"] = grid_sample(batch["rgb_face_zero"], batch["coord"])
-    m = grid_sample((batch["rgb_face_zero"] > 0).float(), batch["coord"])
-    batch["blackaug_face_mask"] = (m == 1.0).float()
-    params = weights.random_params(SEED, device=dev)
-    if face != params[0]["canonical_depth"].shape[0]:
-        gen = torch.Generator(device=dev).manual_seed(SEED)
-        params[0]["canonical_depth"] = 0.8 + 0.4 * torch.rand(
-            face, face, device=dev, generator=gen)
-    frozen = {"lpips": weights.random_lpips(SEED + 1, device=dev),
-              "depth_pts": trainer.depth_loss_points(
-                  raw["mask_head_canonical"][0],
-                  raw["mask_face_canonical"][0], raw["rgb_face_zero"][0],
-                  device=dev)}
-    if with_sync:
-        frozen["syncnet"] = weights.random_syncnet(SEED + 2, device=dev)
-    return batch, geo, window, params, frozen
+    step (``tools.bench_train.train_inputs``, seeded by SEED): returns
+    (batch, geo, window, params, frozen)."""
+    from speech2lip_tpu_torch.tools import bench_train
+    return bench_train.train_inputs(dev, b, face, lip_h, lip_w,
+                                    with_sync=with_sync, seed=SEED)
 
 
 # the user's loop: a learnable identity at May geometry, trained through
@@ -1150,10 +1132,12 @@ def evaluation(dev, card: str, tmp: str, loop: dict) -> dict:
     def part(name):
         torch.cuda.synchronize()
         reset()
+        slot = {}
         t0 = time.perf_counter()
-        yield
+        yield slot
         torch.cuda.synchronize()
-        parts[name] = {"s": time.perf_counter() - t0, "launches": counts()}
+        parts[name] = {"s": time.perf_counter() - t0, "launches": counts(),
+                       "result": slot.get("result")}
 
     conv_dir = os.path.join(tmp, "convergence")
     t0 = time.perf_counter()
@@ -1542,6 +1526,394 @@ def preprocessing(dev, card: str, tmp: str) -> dict:
     out["landmarks_s3fd_fps"] = n / summaries["landmarks_s3fd"]["seconds"][
         "landmarks"]
     out["warp_fps"] = n / summaries["warp"]["seconds"]["warp"]
+    return out
+
+
+# the user's tools: the reference's weight files at published widths
+# (synthesized from seeds, in their names and blob layouts) through
+# tools/convert_weights, the raw-video-to-score pipeline at May width, and
+# the training and per-stage benches.  Cut in depth only: the pipeline's
+# frames, iterations and tracker budgets; its world's 3DMM has the Basel
+# model's 34,650 vertices (phase 9's), with the tool's 8 identity and 6
+# expression components
+PIPE_ARGS = ["--crop", str(FACE), "--lip-w", str(LIP_W), "--lip-h",
+             str(LIP_H), "--verts", "34650", "--dtype", "bfloat16",
+             "--batch", str(TRAIN_B), "--track-scale", "0.1", "--frames",
+             "24", "--val-frames", "8", "--iters", "4", "--validate-every",
+             "2"]
+# the JAX tool's report keys, in its order (as the committed PIPELINE.json)
+PIPELINE_KEYS = [
+    "pipeline", "geometry", "iters", "compute_dtype", "phase_seconds",
+    "total_seconds", "focal_true", "focal_found", "val_psnr_trajectory",
+    "best_checkpoint_selected", "rendered_val_metrics", "backend"]
+# i.i.d. noise through the converted DSFD (ResNet-152) against a float64
+# forward on the CPU: the card's float32 may be no farther from float64
+# than this many times the CPU's float32 is, were a card-vs-CPU gap there
+# float32 rounding and not a fault of the card path
+DSFD_F64_FACTOR = 4.0
+TOOLS_PATHS = ("pipeline_fit", "pipeline_infer", "bench_train",
+               "bench_components")
+# K2 / dsrc / dgrid launches a train step: stage 1 and the sync stage
+STEP_LAUNCHES = {False: (2, 1, 1), True: (3, 2, 1)}
+
+
+def tree_f64(tree):
+    """The tree with its floating tensors in float64."""
+    if isinstance(tree, dict):
+        return {k: tree_f64(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_f64(v) for v in tree]
+    return tree.double() if tree.is_floating_point() else tree
+
+
+def tree_equal(a, b) -> bool:
+    """Two checkpoint trees hold the same leaves bit for bit."""
+    import numpy as np
+
+    from speech2lip_tpu_torch.core.checkpoint import flatten
+    fa, fb = flatten(a), flatten(b)
+    return set(fa) == set(fb) and all(
+        fa[k].dtype == fb[k].dtype and np.array_equal(fa[k], fb[k])
+        for k in fa)
+
+
+def user_tools(dev, card: str, tmp: str) -> dict:
+    """Phase 10 in the directory ``tmp``: 10a the reference's weight files
+    through tools/convert_weights, each converted net on the card against
+    the CPU and a Renderer batch of the converted talking face against the
+    plain path; 10b tools/full_pipeline_run at May width with its launches
+    by part and a cli/infer batch of the trained identity against the plain
+    path; 10c tools/bench_train and tools/bench_components.  Returns the
+    launches by path and the timings."""
+    import contextlib
+    import math
+    import os
+
+    from speech2lip_tpu_torch import weights
+    from speech2lip_tpu_torch.config import default_config, load_config
+    from speech2lip_tpu_torch.core import checkpoint as ckpt
+    from speech2lip_tpu_torch.data.dataset import LipDataset, stack_batch
+    from speech2lip_tpu_torch.data.synthetic import synthetic_batch
+    from speech2lip_tpu_torch.data.windows import compute_warp_window
+    from speech2lip_tpu_torch.infer.pipeline import RENDER_KEYS
+    from speech2lip_tpu_torch.infer.renderer import (Renderer,
+                                                     render_face_batch)
+    from speech2lip_tpu_torch.models import (bisenet, deepspeech, dsfd, fan,
+                                             lpips, s3fd, syncnet)
+    from speech2lip_tpu_torch.models import talking_face as tf
+    from speech2lip_tpu_torch.ops import nn as tnn
+    from speech2lip_tpu_torch.tools import bench_components, bench_train
+    from speech2lip_tpu_torch.tools import convert_weights as cw
+    from speech2lip_tpu_torch.tools import full_pipeline_run
+    from speech2lip_tpu_torch.tools import reference_weights as rw
+    from speech2lip_tpu_torch.train.trainer import to_device
+
+    cpu = torch.device("cpu")
+    out = {}
+    names = ("window_sample", "hat_sample_dsrc", "hat_sample_dgrid",
+             "fused_mlp", "fused_block")
+
+    def counts():
+        k = kernel_launches()
+        return {n: k[n] for n in names}
+
+    def reset():
+        from speech2lip_tpu_torch.ops.kernels import fused_block as kfb
+        from speech2lip_tpu_torch.ops.kernels import fused_mlp as kmlp
+        from speech2lip_tpu_torch.ops.kernels import hat_sample as khs
+        from speech2lip_tpu_torch.ops.kernels import window_sample as kws
+        kmlp.launches = kws.launches = kfb.launches = 0
+        khs.dsrc_launches = khs.dgrid_launches = 0
+
+    # -- 10a: the reference's files through tools/convert_weights ------------
+    t0 = time.perf_counter()
+    trees = rw.reference_trees(SEED)
+    src, conv = os.path.join(tmp, "reference"), os.path.join(tmp, "models")
+    files = rw.write_reference_files(src, trees)
+    out["weights_synth_s"] = time.perf_counter() - t0
+    sizes = {k: os.path.getsize(v) / 2**20 for k, v in files.items()}
+    log(f"# user tools: the reference's files at published widths in "
+        f"{out['weights_synth_s']:.1f} s, MiB: "
+        + ", ".join(f"{os.path.basename(v)} {sizes[k]:.1f}"
+                    for k, v in files.items()))
+    t0 = time.perf_counter()
+    found = cw.main(["--all", src, conv])
+    ds_out = os.path.join(conv, "deepspeech.ckpt")
+    cw.main(["deepspeech", files["deepspeech"], ds_out])
+    out["convert_s"] = time.perf_counter() - t0
+    want_files = {k: os.path.join(conv, v[0] if k != "talking_face"
+                                  else "talking_face.ckpt")
+                  for k, v in cw.ALL_ARTIFACTS.items() if k != "deepspeech"}
+    require(found == want_files, f"convert --all found {found}")
+    log(f"# user tools: convert_weights --all ({len(found)} kinds; the "
+        f".npz DeepSpeech by its positional form, --all globs .pb only) in "
+        f"{out['convert_s']:.1f} s")
+    conv_trees = {k: ckpt.load_nested(p)[0] for k, p in found.items()}
+    conv_trees["deepspeech"] = ckpt.load_nested(ds_out)[0]
+    unet = ckpt.load_nested(os.path.join(conv, "unet.ckpt"))[0]
+    expect = dict(trees, talking_face=trees["talking_face"][0])
+    for kind in ("bisenet", "fan", "dsfd"):
+        expect[kind] = {"params": trees[kind][0], "state": trees[kind][1]}
+    for kind, tree in conv_trees.items():
+        require(tree_equal(tree, expect[kind]),
+                f"convert_weights {kind}: the file differs from the tree")
+    require(tree_equal(unet, {"params": trees["talking_face"][1],
+                              "state": trees["talking_face"][2]}),
+            "convert_weights: unet.ckpt differs from the tree")
+    log("# user tools: every converted file equals its synthesized tree "
+        "bit for bit")
+
+    gen = torch.Generator().manual_seed(SEED)
+    rand = lambda *s, lo=0.0, hi=1.0: lo + (hi - lo) * torch.rand(
+        *s, generator=gen)
+
+    def image(size, hi):
+        """A smooth image in [0, hi] (a lit ellipse on a shaded ground),
+        the kind of input the detectors see, as phase 9's frames (i.i.d.
+        noise is held against float64 below)"""
+        yy, xx = torch.meshgrid(torch.linspace(-1, 1, size),
+                                torch.linspace(-1, 1, size), indexing="ij")
+        ph = 6.28 * torch.rand(3, generator=gen)
+        ground = 0.3 + 0.1 * torch.sin(3 * xx[..., None] + ph) * torch.cos(
+            2 * yy[..., None])
+        face = ((xx / 0.45) ** 2 + (yy / 0.6) ** 2 < 1).float()[..., None]
+        shade = 0.55 + 0.3 * torch.cos(2.5 * xx + 1.0)[..., None] \
+            * torch.tensor([1.0, 0.8, 0.7])
+        return (hi * (ground * (1 - face) + shade * face)).clamp(0, hi)[None]
+    nets = {
+        "fan": (lambda d: weights.fan_from_jax(
+            conv_trees["fan"]["params"], conv_trees["fan"]["state"], d),
+            lambda p, x: fan.apply(*p, x), image(256, 1.0)),
+        "s3fd": (lambda d: weights.s3fd_from_jax(conv_trees["s3fd"], d),
+                 lambda p, x: [t for pair in s3fd.apply(p, x) for t in pair],
+                 image(FACE, 255.0)),
+        "dsfd": (lambda d: weights.dsfd_from_jax(
+            conv_trees["dsfd"]["params"], conv_trees["dsfd"]["state"], d),
+            lambda p, x: [t for pair in dsfd.apply(*p, x) for t in pair],
+            image(FACE, 255.0)),
+        "bisenet": (lambda d: weights.bisenet_from_jax(
+            conv_trees["bisenet"]["params"], conv_trees["bisenet"]["state"],
+            d), lambda p, x: [bisenet.apply(*p, x)], image(512, 1.0)),
+        "syncnet": (lambda d: weights.syncnet_from_jax(
+            *conv_trees["syncnet"], d),
+            lambda p, x: list(syncnet.apply(*p, x[0], x[1])),
+            (rand(2, 80, 16, 1, lo=-4.0), rand(2, 48, 96, 15))),
+        "lpips": (lambda d: weights.lpips_from_jax(conv_trees["lpips"], d),
+                  lambda p, x: [lpips.lpips_distance(p, x[0], x[1])],
+                  (rand(2, 64, 64, 3, lo=-1.0), rand(2, 64, 64, 3, lo=-1.0))),
+        "deepspeech": (lambda d: weights.deepspeech_from_jax(
+            conv_trees["deepspeech"], d),
+            lambda p, x: [deepspeech.apply(p, x)], rand(32, 494, lo=-1.0)),
+    }
+    to = lambda x, d: (tuple(t.to(d) for t in x) if isinstance(x, tuple)
+                       else x.to(d))
+    out["nets"] = {}
+    for name, (load, fn, x) in nets.items():
+        with torch.no_grad(), tnn.full_float32():
+            got = fn(load(dev), to(x, dev))
+            want = fn(load(cpu), x)
+        ratio = max(float((g.cpu() - w).abs().max())
+                    / max(float(w.abs().max()), 1e-30)
+                    for g, w in zip(got, want))
+        out["nets"][name] = ratio
+        log(f"# user tools: converted {name} forward, card vs CPU: "
+            f"max|diff| / max|CPU| {ratio:.3g} over its {len(want)} outputs "
+            f"(bound {PRE_NET_BOUND})")
+        require(ratio <= PRE_NET_BOUND and all(
+            bool(torch.isfinite(g).all()) for g in got),
+            f"converted {name}: card vs CPU")
+
+    # i.i.d. noise in [0, 255] through the converted DSFD (the input that
+    # gave 3.58e-4 card vs CPU in one run, against 2.6e-5 on phase 9's
+    # rendered frame): the card's and the CPU's float32 against a float64
+    # forward on the CPU
+    load, fn, _ = nets["dsfd"]
+    noise = rand(1, FACE, FACE, 3, hi=255.0)
+    with torch.no_grad(), tnn.full_float32():
+        card32 = fn(load(dev), noise.to(dev))
+        cpu32 = fn(load(cpu), noise)
+        ref64 = fn(tree_f64(load(cpu)), noise.double())
+
+    def rel(got, want):
+        return max(float((g.cpu().double() - w.double()).abs().max())
+                   / max(float(w.abs().max()), 1e-300)
+                   for g, w in zip(got, want))
+    w64 = out["dsfd_noise_f64"] = {
+        "card_vs_cpu": rel(card32, cpu32), "card_vs_f64": rel(card32, ref64),
+        "cpu_vs_f64": rel(cpu32, ref64)}
+    log(f"# user tools: converted dsfd on i.i.d. noise {tuple(noise.shape)}"
+        f", max|diff| / max|ref| over its {len(ref64)} outputs: card vs "
+        f"CPU {w64['card_vs_cpu']:.3g}; against float64 on the CPU: card "
+        f"float32 {w64['card_vs_f64']:.3g}, CPU float32 "
+        f"{w64['cpu_vs_f64']:.3g} (the card within {DSFD_F64_FACTOR}x the "
+        f"CPU's) on {card}")
+    require(all(bool(torch.isfinite(g).all()) for g in card32)
+            and w64["card_vs_f64"] <= DSFD_F64_FACTOR * w64["cpu_vs_f64"],
+            "converted dsfd on noise: the card is farther from float64 "
+            "than float32 rounding on the CPU")
+    del card32, cpu32, ref64
+
+    # the converted talking face + U-Net: one Renderer batch vs plain
+    tcfg = default_config()
+    tcfg["data"].update(height=LIP_H, width=LIP_W)
+    tcfg["model"].update(compute_dtype="bfloat16",
+                         canonical_depth_height=FACE,
+                         canonical_depth_width=FACE)
+    p, up, us = weights.from_jax(conv_trees["talking_face"],
+                                 unet["params"], unet["state"], device=dev)
+    raw, geo = synthetic_batch(TRAIN_B, face=FACE, lip_h=LIP_H, lip_w=LIP_W,
+                               seed=SEED + 5)
+    box = tf.expanded_lip_box(LIP_H, LIP_W, geo["lip_x"], geo["lip_y"])
+    win = compute_warp_window([raw["coord"][i] for i in range(TRAIN_B)],
+                              box, FACE, FACE, margin=MARGIN)
+    rnd = Renderer(tcfg, p, up, us, device=dev, window=win)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+    reset()
+    got = rnd(batch, geo["lip_x"], geo["lip_y"])
+    torch.cuda.synchronize()
+    n = counts()
+    ref = render_face_batch(*rnd.params, batch, lip_x=geo["lip_x"],
+                            lip_y=geo["lip_y"], lip_h=LIP_H, lip_w=LIP_W,
+                            use_kernels=False, compute_dtype=torch.bfloat16,
+                            window=win)
+    out["converted_render_err"] = check(
+        "converted talking face, Renderer batch of 8",
+        [(got["face"], ref["face"]), (got["lip"], ref["lip"])],
+        SLICE_BF16_BOUND)
+    require((n["fused_mlp"], n["window_sample"], n["fused_block"])
+            == (1, 1, 5), f"converted Renderer launches {n}")
+    del trees, conv_trees, nets, rnd, batch, got, ref
+
+    # -- 10b: tools/full_pipeline_run at May width ----------------------------
+    parts = {}
+
+    @contextlib.contextmanager
+    def part(name):
+        torch.cuda.synchronize()
+        reset()
+        slot = {}
+        t0 = time.perf_counter()
+        yield slot
+        torch.cuda.synchronize()
+        parts[name] = {"s": time.perf_counter() - t0, "launches": counts(),
+                       "result": slot.get("result")}
+
+    pipe = os.path.join(tmp, "pipeline")
+    t0 = time.perf_counter()
+    report = full_pipeline_run.main(["--out", pipe, *PIPE_ARGS], part=part)
+    out["pipeline_s"] = time.perf_counter() - t0
+    for name, pt in parts.items():
+        log(f"# user tools: full_pipeline_run {name}: {pt['s']:.2f} s, "
+            f"launches {pt['launches']} on {card}")
+    pcfg = load_config(os.path.join(pipe, "config.yaml"))
+    tr, val = pcfg["training"], pcfg["data"]["val_split_frames"]
+    zero = loop_launches(tr, [], val)
+    n_batches = -(-val // TRAIN_B)
+    want = {name: zero for name in parts}
+    want["train"] = loop_launches(tr, range(1, report["iters"] + 1), val)
+    want["infer"] = {"window_sample": n_batches, "hat_sample_dsrc": 0,
+                     "hat_sample_dgrid": 0, "fused_mlp": n_batches,
+                     "fused_block": 5 * n_batches}
+    got = {k: pt["launches"] for k, pt in parts.items()}
+    steps = ["synthesize_world", "extract", "crop_face", "landmarks",
+             "track", "warp", "uv_mapping", "masks", "crop_lip",
+             "audio_features", "train", "infer", "evaluate"]
+    require(list(parts) == steps, f"pipeline parts {list(parts)}")
+    require(got == want, f"full_pipeline_run launches {got}, expected "
+            f"{want}")
+    metrics = report["rendered_val_metrics"]
+    require(list(report) == PIPELINE_KEYS and finite(report)
+            and report["best_checkpoint_selected"]
+            and len(report["pipeline"]) == 13
+            and set(report["phase_seconds"]) == set(steps[:-1])
+            and metrics["n_frames"] == val == len(os.listdir(os.path.join(
+                pipe, "rendering_result", "pipeline", "postfusion")))
+            and all(math.isfinite(v) for v in metrics.values()),
+            f"pipeline report: {json.dumps(report)[:2000]}")
+    log(f"# user tools: pipeline report {json.dumps(report)}")
+    log(f"# user tools: focal found {report['focal_found']} against the "
+        f"true {report['focal_true']} (grid 600..1500, --track-scale 0.1)")
+    out["pipeline_fit"], out["pipeline_infer"] = got["train"], got["infer"]
+    out["pipeline_parts"] = {k: pt["s"] for k, pt in parts.items()}
+    out["pipeline_report"] = report
+    with open(os.path.join(pcfg["training"]["out_dir"],
+                           "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    split = [(r["train/batch_ms"], r["train/step_ms"]) for r in recs
+             if "train/step_ms" in r]
+    out["pipeline_fit_ms"] = [b + st for b, st in split]
+    log(f"# user tools: pipeline fit ms an iteration = batch build + step "
+        f"(metrics.jsonl): " + ", ".join(
+            f"{b + st:.1f} = {b:.1f} + {st:.1f}" for b, st in split)
+        + f" on {card}")
+
+    # cli/infer's first batch on the renderer that rendered and was timed
+    # (model_best.ckpt) against the plain path on its parameters
+    rnd = parts["infer"]["result"]["renderer"]
+    require(rnd.compute_dtype == torch.bfloat16,
+            f"pipeline cli/infer renderer {rnd.compute_dtype}")
+    ds = LipDataset(pcfg["data"]["path"], "val", pcfg)
+    host = stack_batch([ds.load_frame(i) for i in range(min(TRAIN_B,
+                                                            len(ds)))])
+    batch = to_device({k: host[k] for k in RENDER_KEYS}, dev)
+    got = rnd(batch, ds.lefttop_x, ds.lefttop_y)
+    ref = render_face_batch(*rnd.params, batch, lip_x=ds.lefttop_x,
+                            lip_y=ds.lefttop_y, lip_h=rnd.lip_h,
+                            lip_w=rnd.lip_w,
+                            expand_divisor=rnd.expand_divisor,
+                            use_kernels=False,
+                            compute_dtype=rnd.compute_dtype,
+                            window=rnd.window)
+    out["pipeline_infer_err"] = check(
+        "pipeline cli/infer's renderer (model_best.ckpt), its first batch",
+        [(got["face"], ref["face"]), (got["lip"], ref["lip"])],
+        SLICE_BF16_BOUND)
+    del rnd, batch, got, ref, parts
+
+    # -- 10c: the benches ------------------------------------------------------
+    reset()
+    t0 = time.perf_counter()
+    rows = bench_train.main([])
+    out["bench_train_s"] = time.perf_counter() - t0
+    out["bench_train"] = rows
+    for r in rows:
+        if r.get("error"):
+            log(f"# user tools: bench_train {r['case']} {r['dtype']}: "
+                f"{r['error']} on {card}")
+            continue
+        n = r["launches"]
+        require(math.isfinite(r["ms_per_step"]) and math.isfinite(r["loss"])
+                and (n["window_sample"], n["hat_sample_dsrc"],
+                     n["hat_sample_dgrid"])
+                == STEP_LAUNCHES[r["case"].startswith("sync")],
+                f"bench_train row {r}")
+    require(len(rows) == 6 and all(not r.get("error") for r in rows
+                                   if r["dtype"] == "bfloat16"),
+            f"bench_train rows {rows}")
+    out["bench_train_launches"] = counts()
+    t0 = time.perf_counter()
+    bench = bench_components.build(dev)
+    comp = bench_components.run(bench)
+    out["bench_components_s"] = time.perf_counter() - t0
+    out["bench_components"] = comp
+    want = {"full render": (1, 1, 5), "lip MLP": (1, 0, 0),
+            "composite": (0, 1, 0), "U-Net": (0, 0, 5),
+            "U-Net plain": (0, 0, 0)}
+    totals = dict.fromkeys(names, 0)
+    for name, (kern, plain) in bench.stages.items():
+        n = comp[name]["launches"]
+        require((n["fused_mlp"], n["window_sample"], n["fused_block"])
+                == want[name], f"bench_components {name} launches {n}")
+        for k, v in n.items():
+            totals[k] += v
+        if plain is None:       # the plain U-Net: a timing row only
+            continue
+        with torch.no_grad():
+            g, w = kern(), plain()
+        comp[name]["err"] = check(f"bench_components {name}", [(g, w)],
+                                  UNET_BF16_BOUND)
+    out["bench_components_launches"] = totals
+    del bench
     return out
 
 
@@ -2160,6 +2532,11 @@ def main() -> int:
     # -- phase 9: preprocessing at full width through cli/preprocess -------
     with tempfile.TemporaryDirectory() as tmp:
         pre = preprocessing(dev, card, tmp)
+    # -- phase 10: the user's tools: converter, pipeline, benches -----------
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        tools = user_tools(dev, card, tmp)
+        tools["s"] = time.perf_counter() - t0
 
     # -- phase 3e: the dot probe's tool at its full shape -----------------
     # kdp.launches counts dot_probe calls that reached the card; an int8
@@ -2548,6 +2925,10 @@ def main() -> int:
         del bb
 
     pallas = "speech2lip_tpu/ops/pallas/"
+    tool_launches = {"pipeline_fit": tools["pipeline_fit"],
+                     "pipeline_infer": tools["pipeline_infer"],
+                     "bench_train": tools["bench_train_launches"],
+                     "bench_components": tools["bench_components_launches"]}
     kernels = []
     for name, source, replaces, path in (
             ("fused_mlp", "fused_mlp.cu", "fused_mlp.py:80", "render"),
@@ -2571,6 +2952,8 @@ def main() -> int:
                         if na[p].get(name)})
         by_path.update({p: ev[p][name] for p in EVAL_PATHS
                         if ev[p].get(name)})
+        by_path.update({p: tool_launches[p][name] for p in TOOLS_PATHS
+                        if tool_launches[p].get(name)})
         kernels.append({"name": name, "route": "cuda",
                         "source": f"speech2lip_tpu_torch/csrc/{source}",
                         "replaces": pallas + replaces, "path": path,
@@ -2650,6 +3033,30 @@ def main() -> int:
         f"{pre['landmarks_s3fd_fps']:.2f}, warp {pre['warp_fps']:.1f} "
         f"frames/s; find_focal (3 candidates) {pre['find_focal_s']:.2f} s; "
         f"rasterizer overflow {pre['overflow']} on {card}")
+    rep = tools["pipeline_report"]
+    log(f"# user tools (phase 10) {tools['s']:.1f} s: weights synthesized "
+        f"{tools['weights_synth_s']:.1f} s, converted "
+        f"{tools['convert_s']:.1f} s (nets card vs CPU "
+        f"{ {k: float(f'{v:.3g}') for k, v in tools['nets'].items()} }, "
+        f"converted Renderer {tools['converted_render_err']:.3g}; DSFD on "
+        f"noise vs float64 {tools['dsfd_noise_f64']}); pipeline "
+        f"{tools['pipeline_s']:.1f} s, wall s by step "
+        + ", ".join(f"{k} {v:.2f}" for k, v in tools["pipeline_parts"].items())
+        + f"; focal {rep['focal_found']} (true {rep['focal_true']}); val "
+        f"PSNR {[round(t['psnr'], 3) for t in rep['val_psnr_trajectory']]}; "
+        f"rendered {rep['rendered_val_metrics']}; fit ms an iteration "
+        f"{[round(g, 1) for g in tools['pipeline_fit_ms']]}; bench_train "
+        f"{tools['bench_train_s']:.1f} s, bench_components "
+        f"{tools['bench_components_s']:.1f} s on {card}")
+    for r in tools["bench_train"]:
+        log(f"# bench_train {r['case']} {r['dtype']}: " + (
+            r["error"] if r.get("error") else
+            f"{r['ms_per_step']:.2f} ms/step, {r['ms_per_frame']:.2f} "
+            f"ms/frame") + f" on {card}")
+    log("# bench_components batch 32 bf16 ms: " + ", ".join(
+        f"{k} {v['ms']:.3f}" + (f" (kernels vs plain {v['err']:.3g})"
+                                 if "err" in v else "")
+        for k, v in tools["bench_components"].items()) + f" on {card}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
