@@ -75,6 +75,18 @@ made from a seed:
   full shape and its own count of calls: one warm-up and ITERS timed K8
   dot_probe calls in bf16 and in int8, its outputs against the plain
   version;
+- training across processes: fit (float32, K2/K7 gathers, K1 validation)
+  with torch's default TF32 flags on the card against the CPU, every
+  float32 card conv without TF32; then, in children that run this script
+  again (``--rank-job SPEC``, through torch.distributed.run), fit at May
+  geometry with no group and under a one-rank NCCL group, equal bit for
+  bit (plain gathers, deterministic torch ops), with the gradients' flat
+  NCCL all-reduce timed; two gloo ranks sharing the card against one
+  rank on the global batch (fit with K1/K2/K7 launches a rank, and one
+  train step), the gradient all-reduce over gloo timed; sharded
+  checkpoint round trips into NaN templates at one and two ranks; and
+  MultiSpeakerServer(mesh=) at one rank against the server with no mesh
+  (K1/K2/K3 launches);
 
 checks that the kernels carried each path (launch counts, set to 0 just
 before a path and read just after) and that the composite hands K2, and
@@ -1538,7 +1550,7 @@ def preprocessing(dev, card: str, tmp: str) -> dict:
 # expression components
 PIPE_ARGS = ["--crop", str(FACE), "--lip-w", str(LIP_W), "--lip-h",
              str(LIP_H), "--verts", "34650", "--dtype", "bfloat16",
-             "--batch", str(TRAIN_B), "--track-scale", "0.1", "--frames",
+             "--batch", str(TRAIN_B), "--track-scale", "0.05", "--frames",
              "24", "--val-frames", "8", "--iters", "4", "--validate-every",
              "2"]
 # the JAX tool's report keys, in its order (as the committed PIPELINE.json)
@@ -1832,7 +1844,8 @@ def user_tools(dev, card: str, tmp: str) -> dict:
             f"pipeline report: {json.dumps(report)[:2000]}")
     log(f"# user tools: pipeline report {json.dumps(report)}")
     log(f"# user tools: focal found {report['focal_found']} against the "
-        f"true {report['focal_true']} (grid 600..1500, --track-scale 0.1)")
+        f"true {report['focal_true']} (grid 600..1500, --track-scale "
+        f"{PIPE_ARGS[PIPE_ARGS.index('--track-scale') + 1]})")
     out["pipeline_fit"], out["pipeline_infer"] = got["train"], got["infer"]
     out["pipeline_parts"] = {k: pt["s"] for k, pt in parts.items()}
     out["pipeline_report"] = report
@@ -1914,6 +1927,467 @@ def user_tools(dev, card: str, tmp: str) -> dict:
                                   UNET_BF16_BOUND)
     out["bench_components_launches"] = totals
     del bench
+    return out
+
+
+# training across processes (phase 11): fit with torch's default TF32
+# flags against the CPU; fit under a one-rank NCCL group (a
+# torch.distributed.run child) against fit with no group, bit for bit; two
+# gloo ranks sharing the card against one rank on the global batch;
+# sharded checkpoints; MultiSpeakerServer(mesh=) at one rank.  Each child
+# is this script again (``--rank-job SPEC``), on a learnable identity at
+# May geometry; the card-vs-CPU fit runs on a small one
+PAR_FRAMES, PAR_ITERS, PAR_B = 20, 3, 2
+PAR_TRAINING = {"batch_size": PAR_B, "print_every": 1,
+                "checkpoint_every": 1, "backup_every": 0,
+                "validate_every": PAR_ITERS, "visualize_every": 0,
+                "use_syncloss": False, "use_local_ensemble": False,
+                "add_noise_uv": False, "add_noise_audio": False}
+# two ranks against one rank on the global batch: float32 sums in another
+# order (the CPU tests' bounds, tests/test_torch_parallel.py): a step, and
+# fit's first iteration, within 1e-5; later iterations within 1e-3, as
+# Adam's first step moves a noise-level gradient element by a whole lr
+# whatever its last bits, and the next gradients carry that
+PAR_BOUND, PAR_LATER_BOUND = 1e-5, 1e-3
+# the values of metrics.jsonl that the bit-for-bit comparison reads: every
+# one but the wall clock and the host timings
+PAR_TIMING_KEYS = ("t", "train/batch_ms", "train/step_ms")
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _wall_ms(fn, dev, iters: int = 20) -> float:
+    """Mean wall ms of ``fn()`` over ``iters`` calls after one, the device
+    synchronised around them."""
+    fn()
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    _sync(dev)
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def _rank_fit(cfg, iters, dev, counters):
+    """fit on ``dev`` with the launch counters zeroed before and read
+    after; returns (state, launches, the step's gradient all-reduce ms,
+    one a step)."""
+    from speech2lip_tpu_torch.parallel import mesh as mesh_mod
+    from speech2lip_tpu_torch.train import trainer
+
+    reset, counts = counters
+    spent = []
+    mean_tensors = mesh_mod.mean_tensors
+
+    def timed(tensors, mesh):
+        if mesh_mod.data_size(mesh) <= 1 or len(tensors) < 20:
+            return mean_tensors(tensors, mesh)     # metrics, not gradients
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = mean_tensors(tensors, mesh)
+        _sync(dev)
+        spent.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    mesh_mod.mean_tensors = timed
+    try:
+        reset()
+        state = trainer.fit(cfg, max_iters=iters, device=dev)
+        _sync(dev)
+        return state, counts(), spent
+    finally:
+        mesh_mod.mean_tensors = mean_tensors
+
+
+def _launch_counters():
+    from speech2lip_tpu_torch.ops.kernels import fused_block as kfb
+    from speech2lip_tpu_torch.ops.kernels import fused_mlp as kmlp
+    from speech2lip_tpu_torch.ops.kernels import hat_sample as khs
+    from speech2lip_tpu_torch.ops.kernels import window_sample as kws
+
+    def reset():
+        kmlp.launches = kws.launches = kfb.launches = 0
+        khs.dsrc_launches = khs.dgrid_launches = 0
+
+    def counts():
+        return {"fused_mlp": kmlp.launches, "window_sample": kws.launches,
+                "fused_block": kfb.launches,
+                "hat_sample_dsrc": khs.dsrc_launches,
+                "hat_sample_dgrid": khs.dgrid_launches}
+    return reset, counts
+
+
+def _sharded_roundtrip(tree, path) -> bool:
+    """save_sharded on every rank, then restore into a NaN template: every
+    leaf back bit for bit."""
+    from speech2lip_tpu_torch.core.checkpoint import flatten_paths
+    from speech2lip_tpu_torch.core.checkpoint_sharded import (
+        restore_sharded, save_sharded)
+    from speech2lip_tpu_torch.train import train_step as ts
+
+    save_sharded(path, tree, {"it": 1})
+    nan = ts.tree_map(lambda t: torch.full_like(t, float("nan"))
+                      if torch.is_tensor(t) and t.is_floating_point()
+                      else t, tree)
+    got, scalars = restore_sharded(path, nan)
+    pairs = list(zip(flatten_paths(got), flatten_paths(tree)))
+    return scalars == {"it": 1} and all(
+        ka == kb and (torch.equal(a, b) if torch.is_tensor(b) else a == b)
+        for (ka, a), (kb, b) in pairs)
+
+
+def _server_job(dev, counters, face, lip_h, lip_w) -> dict:
+    """MultiSpeakerServer(mesh=) at this group's one rank against the
+    server with no mesh: two identities at one offset, a batch of 8 each
+    through the kernels."""
+    from speech2lip_tpu_torch import weights
+    from speech2lip_tpu_torch.config import default_config
+    from speech2lip_tpu_torch.data.synthetic import synthetic_batch
+    from speech2lip_tpu_torch.data.windows import compute_warp_window
+    from speech2lip_tpu_torch.infer.pipeline import (RENDER_KEYS,
+                                                     MultiSpeakerServer)
+    from speech2lip_tpu_torch.models import talking_face as tf
+    from speech2lip_tpu_torch.parallel.mesh import make_mesh
+
+    reset, counts = counters
+    cfg = default_config()
+    cfg["data"]["height"], cfg["data"]["width"] = lip_h, lip_w
+    cfg["model"]["canonical_depth_height"] = face
+    cfg["model"]["canonical_depth_width"] = face
+    raw, geo = synthetic_batch(8, face=face, lip_h=lip_h, lip_w=lip_w,
+                               seed=SEED)
+    box = tf.expanded_lip_box(lip_h, lip_w, geo["lip_x"], geo["lip_y"])
+    window = tuple(compute_warp_window([raw["coord"][i] for i in range(8)],
+                                       box, face, face, margin=MARGIN))
+    sets = [weights.random_params(s, cfg=cfg) for s in range(2)]
+    pos = [(geo["lip_x"], geo["lip_y"])] * 2
+    batches = []
+    for s in range(2):
+        b = {k: torch.from_numpy(raw[k]).to(dev) for k in RENDER_KEYS}
+        b["audio"] = b["audio"] + 0.1 * s
+        batches.append(b)
+    out = {}
+    for name, mesh in (("plain", None), ("mesh", make_mesh(device=dev))):
+        srv = MultiSpeakerServer(cfg, sets, pos, window=window, device=dev,
+                                 mesh=mesh)
+        reset()
+        faces = [o["face"] for o in srv.render_all(batches)]
+        _sync(dev)
+        out[name] = (faces, counts(), list(srv.served))
+    (fp, cp, _), (fm, cm, served) = out["plain"], out["mesh"]
+    return {"equal": all(torch.equal(a, b) for a, b in zip(fm, fp)),
+            "launches": cm, "launches_plain": cp, "served": served}
+
+
+def rank_job(spec_path: str) -> int:
+    """One process of phase 11 (``chip_smoke.py --rank-job SPEC``, started
+    through ``torch.distributed.run``).  ``nccl``: the spec's ungrouped
+    fits run first, with no process group; then the process joins the
+    launcher's group as ``cli/train`` joins it (NCCL, one rank) and runs
+    the rest.  ``gloo``: every rank joins a gloo group on card 0 first.
+    Then the gradients' flat all-reduce, one train step on this rank's
+    rows of a global batch and, with ``server``, the server at one rank;
+    rank 0 writes the results where the spec says."""
+    import os
+
+    import torch.distributed as dist
+
+    from speech2lip_tpu_torch.config import load_config
+    from speech2lip_tpu_torch.parallel import distributed
+    from speech2lip_tpu_torch.parallel import mesh as mesh_mod
+    from speech2lip_tpu_torch.tools import bench_train
+    from speech2lip_tpu_torch.train import train_step as ts
+
+    spec = json.load(open(spec_path))
+    dev = distributed.rank_device(spec["device"])
+    if spec["backend"] == "gloo":
+        dev = torch.device(spec["device"], 0 if dev.type == "cuda" else None)
+        dist.init_process_group("gloo", init_method="env://")
+    # the plain versions' float32 work as the other phases run it
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = _launch_counters()
+    face, lip_h, lip_w = spec["geometry"]
+    res = {"fits": {}}
+    trainable = None
+    for run in spec["fits"]:
+        if run["grouped"] and not dist.is_initialized():
+            require(distributed.initialize_if_needed(spec["device"]),
+                    "no launcher variables for the NCCL job")
+        cfg = load_config(run["config"])
+        torch.backends.cudnn.deterministic = run["deterministic"]
+        torch.use_deterministic_algorithms(run["deterministic"])
+        t0 = time.perf_counter()
+        state, launches, ar = _rank_fit(cfg, run["iters"], dev, counters)
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+        rec = {"s": time.perf_counter() - t0, "launches": launches,
+               "allreduce_ms": ar, "world": distributed.process_count()}
+        if run.get("roundtrip"):
+            rec["roundtrip"] = _sharded_roundtrip(
+                ts.state_to_tree(state), os.path.join(
+                    cfg["training"]["out_dir"], "roundtrip"))
+        res["fits"][run["name"]] = rec
+        trainable = {"model": state.params, "unet": state.unet_params}
+    res["world"] = distributed.process_count()
+    # the gradients' one flat all-reduce, at the size of fit's trainables
+    n = sum(t.numel() for t in ts.tree_leaves(trainable))
+    flat = torch.zeros(n, device=dev)
+    res["grad_bytes"] = 4 * n
+    res["grad_allreduce_ms"] = _wall_ms(lambda: dist.all_reduce(flat), dev)
+    # one train step on this rank's rows of a global batch
+    b = spec["step_batch"]
+    batch, geo, win, params, frozen = bench_train.train_inputs(
+        dev, b, face, lip_h, lip_w, seed=SEED)
+    st = ts.StepStatics(lip_h=lip_h, lip_w=lip_w, lip_x=geo["lip_x"],
+                        lip_y=geo["lip_y"], face_h=face, face_w=face,
+                        focal=geo["focal"], window=win,
+                        face_bbox=(0, 0, face, face), pallas_gather=True)
+    mesh = mesh_mod.make_mesh(device=dev)
+    draws = ts.draw_noise(st, b, device=dev,
+                          generator=torch.Generator(dev).manual_seed(1))
+    opt = ts.Adam(1e-4)
+    new, m = ts.make_train_step(opt, st, frozen, mesh)(
+        ts.init_train_state(*params, opt), mesh_mod.shard_batch(batch, mesh),
+        ts.shard_draws(draws, mesh))
+    res["step"] = {"metrics": {k: float(v) for k, v in m.items()},
+                   "bn": [t.double().cpu().tolist() for t in
+                          ts.tree_leaves(new.unet_state)]}
+    if spec["server"]:
+        res["server"] = _server_job(dev, counters, face, lip_h, lip_w)
+    rank = distributed.process_index()
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank == 0:
+        with open(spec["out"], "w") as f:
+            json.dump(res, f)
+    return 0
+
+
+def _records(out_dir: str):
+    import os
+    return [json.loads(line) for line in open(os.path.join(
+        out_dir, "metrics.jsonl"))]
+
+
+def training_across_processes(dev, card: str, tmp: str) -> dict:
+    """Phase 11 in the directory ``tmp``.  Returns its numbers."""
+    import os
+
+    import numpy as np
+
+    import torch.nn.functional as F
+
+    from speech2lip_tpu_torch.config import save_config
+    from speech2lip_tpu_torch.core.checkpoint import load
+    from speech2lip_tpu_torch.data.synthetic import (make_learnable_tree,
+                                                     make_synthetic_tree,
+                                                     synthetic_config)
+    from speech2lip_tpu_torch.parallel.distributed import launch
+    from speech2lip_tpu_torch.train import trainer
+
+    out = {}
+    # -- 11a: fit with torch's default flags, card against the CPU ---------
+    root = os.path.join(tmp, "small")
+    cfg = synthetic_config(root, make_synthetic_tree(
+        root, n_frames=12, face=64, lip_h=16, lip_w=24))
+    cfg["model"]["use_post_fusion_blackaug"] = False
+    cfg["training"].update(batch_size=2, print_every=1, checkpoint_every=0,
+                           backup_every=0, validate_every=2,
+                           visualize_every=0, use_local_ensemble=False,
+                           use_syncloss=False, pallas_gather=True)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    seen, conv = [], F.conv2d
+
+    def spy(x, *args, **kw):
+        if x.is_cuda and x.dtype == torch.float32:
+            seen.append(torch.backends.cudnn.allow_tf32
+                        or torch.backends.cuda.matmul.allow_tf32)
+        return conv(x, *args, **kw)
+
+    recs = {}
+    for name, d in (("card", dev), ("cpu", "cpu")):
+        c = dict(cfg, training=dict(cfg["training"],
+                                    out_dir=os.path.join(tmp, "a_" + name)))
+        torch.backends.cudnn.allow_tf32 = True         # torch's defaults
+        torch.backends.cuda.matmul.allow_tf32 = False
+        F.conv2d = spy
+        try:
+            trainer.fit(c, max_iters=2, device=d)
+        finally:
+            F.conv2d = conv
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = flags
+        recs[name] = _records(c["training"]["out_dir"])
+    require(seen and not any(seen), f"fit ran {sum(seen)} of {len(seen)} "
+            "float32 card convs with TF32 on")
+    worst = 0.0
+    for got, ref in zip(recs["card"], recs["cpu"]):
+        for k in ref:
+            if k.startswith(("train/loss", "train/psnr", "train/grad",
+                             "val/")):
+                e = abs(got[k] - ref[k]) / max(1.0, abs(ref[k]))
+                worst = max(worst, e)
+    log(f"# phase 11a: fit float32 with torch's default TF32 flags, card vs "
+        f"CPU worst rel {worst:.3g} (bound 1e-4) over "
+        f"{len(recs['cpu'])} records; {len(seen)} float32 card convs, "
+        "none with TF32")
+    require(worst <= 1e-4, "phase 11a: fit on the card vs the CPU")
+    out["c1_err"] = worst
+
+    # -- the identity and the children's configs ---------------------------
+    root = os.path.join(tmp, "identity")
+    geo = make_learnable_tree(root, n_frames=PAR_FRAMES, face=FACE,
+                              lip_h=LIP_H, lip_w=LIP_W, seed=SEED)
+    base = synthetic_config(root, geo)
+    base["model"]["use_post_fusion_blackaug"] = False
+    base["training"].update(PAR_TRAINING)
+    val_frames = base["data"]["val_split_frames"]
+
+    def config(name, **tr):
+        c = dict(base, training=dict(base["training"], **tr,
+                                     out_dir=os.path.join(tmp, name)))
+        path = os.path.join(tmp, name + ".yaml")
+        save_config(path, c)
+        return path
+
+    # nccl: the bit-for-bit pair (plain gathers: K7's float atomics add
+    # in another order from run to run; deterministic torch ops), no group
+    # then one NCCL rank, and the one-rank reference of the gloo ranks
+    # (the kernel gathers, 2 PAR_B frames); gloo: two ranks of PAR_B
+    exact = dict(iters=PAR_ITERS, deterministic=True, roundtrip=True)
+    kernels = dict(iters=PAR_ITERS, deterministic=False, grouped=True)
+    specs = {
+        "nccl": {"fits": [
+            dict(exact, name="exact_none", grouped=False,
+                 config=config("exact_none", pallas_gather=False)),
+            dict(exact, name="exact_nccl", grouped=True,
+                 config=config("exact_nccl", pallas_gather=False)),
+            dict(kernels, name="kernels_one",
+                 config=config("kernels_one", pallas_gather=True,
+                               batch_size=2 * PAR_B))],
+            "server": True},
+        "gloo": {"fits": [
+            dict(kernels, name="kernels_two", roundtrip=True,
+                 config=config("kernels_two", pallas_gather=True,
+                               sharded_ckpt=True))],
+            "server": False}}
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    res = {}
+    for job, spec in specs.items():
+        spec.update(backend=job, device=dev.type, step_batch=2 * PAR_B,
+                    geometry=[FACE, LIP_H, LIP_W],
+                    out=os.path.join(tmp, f"{job}.json"))
+        path = os.path.join(tmp, f"{job}.spec.json")
+        json.dump(spec, open(path, "w"))
+        t0 = time.perf_counter()
+        # nccl: one rank on card 0; gloo: two ranks, both on card 0
+        launch(1 if job == "nccl" else 2, "chip_smoke",
+               ["--rank-job", path], env=env,
+               cwd=os.path.dirname(os.path.abspath(__file__)))
+        res[job] = json.load(open(spec["out"]))
+        res[job]["wall_s"] = time.perf_counter() - t0
+        log(f"# phase 11 {job} job: {res[job]['wall_s']:.1f} s, world "
+            f"{res[job]['world']}, fits " + ", ".join(
+                f"{k} {v['s']:.1f} s (world {v['world']}) launches "
+                f"{v['launches']}" for k, v in res[job]["fits"].items()))
+
+    # -- 11b: one NCCL rank against no group, bit for bit ------------------
+    n, g = res["nccl"], res["gloo"]
+    nf = n["fits"]
+    a, b = (_records(os.path.join(tmp, name)) for name in ("exact_none",
+                                                           "exact_nccl"))
+    strip = lambda rs: [{k: v for k, v in r.items()
+                         if k not in PAR_TIMING_KEYS} for r in rs]
+    require(len(a) == PAR_ITERS + 1 and strip(a) == strip(b),
+            "phase 11b: metrics.jsonl of the one-rank NCCL fit differs from "
+            "the fit with no group")
+    ca, _ = load(os.path.join(tmp, "exact_none", "model.ckpt"))
+    cb, _ = load(os.path.join(tmp, "exact_nccl", "model.ckpt"))
+    require(set(ca) == set(cb) and all(np.array_equal(ca[k], cb[k])
+                                       for k in ca),
+            "phase 11b: the final checkpoints differ")
+    require((nf["exact_none"]["world"], nf["exact_nccl"]["world"]) == (1, 1)
+            and nf["exact_none"]["roundtrip"] and nf["exact_nccl"]["roundtrip"],
+            "phase 11b/d: world size or the sharded round trip")
+    want_k1 = val_frames * (PAR_ITERS // base["training"]["validate_every"])
+    for name in ("exact_none", "exact_nccl"):
+        got = nf[name]["launches"]
+        require(got["fused_mlp"] == want_k1 and got["window_sample"] == 0,
+                f"phase 11b {name}: launches {got}, K1 {want_k1} expected")
+    its = lambda rs, k: sorted(r[k] for r in rs if r.get("it", 0) > 1
+                               and k in r)
+    log(f"# phase 11b: fit under a one-rank NCCL group == fit with no group, "
+        f"bit for bit ({len(a)} records, {len(ca)} checkpoint leaves; fit "
+        f"{nf['exact_none']['s']:.2f} s (the process's first) against "
+        f"{nf['exact_nccl']['s']:.2f} s; iterations 2.. batch build ms "
+        f"{its(a, 'train/batch_ms')} / {its(b, 'train/batch_ms')}, step ms "
+        f"{its(a, 'train/step_ms')} / {its(b, 'train/step_ms')}); the "
+        f"gradients' flat all-reduce "
+        f"({n['grad_bytes']} bytes) takes {n['grad_allreduce_ms']:.4f} ms on "
+        f"NCCL at one rank on {card}")
+    out.update(grad_bytes=n["grad_bytes"],
+               nccl1_allreduce_ms=n["grad_allreduce_ms"],
+               fit_s={k: nf[k]["s"] for k in ("exact_none", "exact_nccl")})
+
+    # -- 11c: two gloo ranks on the one card against one rank --------------
+    require(g["world"] == 2 and nf["kernels_one"]["world"] == 1,
+            "phase 11c: world sizes")
+    ra = _records(os.path.join(tmp, "kernels_one"))
+    rb = _records(os.path.join(tmp, "kernels_two"))
+    worst = [0.0, 0.0]      # the first iteration, the later records
+    for x, y in zip(ra, rb):
+        for k in x:
+            if k.startswith(("train/loss", "train/psnr", "train/grad",
+                             "val/")):
+                e = abs(x[k] - y[k]) / max(1.0, abs(x[k]))
+                later = x["it"] > 1
+                worst[later] = max(worst[later], e)
+    require(len(ra) == len(rb) == PAR_ITERS + 1 and worst[0] <= PAR_BOUND
+            and worst[1] <= PAR_LATER_BOUND,
+            f"phase 11c: two-rank fit vs one rank rel {worst}")
+    sw = 0.0
+    for k, v in n["step"]["metrics"].items():
+        sw = max(sw, abs(g["step"]["metrics"][k] - v) / max(1.0, abs(v)))
+    for x, y in zip(g["step"]["bn"], n["step"]["bn"]):
+        x, y = np.asarray(x), np.asarray(y)
+        sw = max(sw, float(np.abs(x - y).max() / max(1e-6, np.abs(y).max())))
+    require(sw <= PAR_BOUND, f"phase 11c: two-rank step vs one rank {sw:.3g}")
+    kl = g["fits"]["kernels_two"]
+    require(kl["roundtrip"] and kl["launches"]["window_sample"] > 0
+            and kl["launches"]["hat_sample_dsrc"] > 0
+            and kl["launches"]["hat_sample_dgrid"] > 0
+            and kl["launches"]["fused_mlp"] == want_k1,
+            f"phase 11c: launches {kl['launches']} / sharded round trip")
+    ar = kl["allreduce_ms"]
+    log(f"# phase 11c: two gloo ranks on one card, fit vs one rank on the "
+        f"global batch worst rel {worst[0]:.3g} at it 1 (bound {PAR_BOUND}), "
+        f"{worst[1]:.3g} after (bound {PAR_LATER_BOUND}), a step {sw:.3g} "
+        f"(bound {PAR_BOUND}); rank 0 launches {kl['launches']} (one rank "
+        f"on the global batch {nf['kernels_one']['launches']}); the step's "
+        f"gradient all-reduce over gloo {ar} ms, a flat "
+        f"{g['grad_bytes']}-byte all-reduce {g['grad_allreduce_ms']:.3f} ms "
+        f"on {card}")
+    out.update(gloo_fit_err=worst, gloo_step_err=sw,
+               gloo_allreduce_ms=ar, gloo_flat_ms=g["grad_allreduce_ms"],
+               fit_ranks=kl["launches"], fit_launches_its=PAR_ITERS,
+               job_s={k: v["wall_s"] for k, v in res.items()})
+
+    # -- 11e: the server at one rank ---------------------------------------
+    sv = n["server"]
+    require(sv["equal"] and sv["served"] == [0, 1]
+            and sv["launches"] == sv["launches_plain"]
+            and (sv["launches"]["fused_mlp"], sv["launches"]["window_sample"],
+                 sv["launches"]["fused_block"]) == (2, 2, 10),
+            f"phase 11e: server with a mesh {sv}")
+    log(f"# phase 11e: MultiSpeakerServer(mesh) at one NCCL rank == the "
+        f"server with no mesh (2 identities x 8 frames); launches "
+        f"{sv['launches']}")
+    out["mesh_server"] = sv["launches"]
     return out
 
 
@@ -2538,6 +3012,17 @@ def main() -> int:
         tools = user_tools(dev, card, tmp)
         tools["s"] = time.perf_counter() - t0
 
+    # -- phase 11: training across processes -------------------------------
+    # its children share the card: hand back what the caching allocator
+    # keeps of the earlier phases
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        par = training_across_processes(dev, card, tmp)
+        par["s"] = time.perf_counter() - t0
+
     # -- phase 3e: the dot probe's tool at its full shape -----------------
     # kdp.launches counts dot_probe calls that reached the card; an int8
     # call launches two kernels, the re-layout of rhs and then the dot
@@ -2954,6 +3439,8 @@ def main() -> int:
                         if ev[p].get(name)})
         by_path.update({p: tool_launches[p][name] for p in TOOLS_PATHS
                         if tool_launches[p].get(name)})
+        by_path.update({p: par[p][name] for p in ("fit_ranks", "mesh_server")
+                        if par[p].get(name)})
         kernels.append({"name": name, "route": "cuda",
                         "source": f"speech2lip_tpu_torch/csrc/{source}",
                         "replaces": pallas + replaces, "path": path,
@@ -3057,6 +3544,15 @@ def main() -> int:
         f"{k} {v['ms']:.3f}" + (f" (kernels vs plain {v['err']:.3g})"
                                  if "err" in v else "")
         for k, v in tools["bench_components"].items()) + f" on {card}")
+    log(f"# training across processes (phase 11) {par['s']:.1f} s: C1 fit "
+        f"card vs CPU {par['c1_err']:.3g}; fit s no group / one NCCL rank "
+        f"{par['fit_s']}; gradients {par['grad_bytes']} bytes, flat "
+        f"all-reduce NCCL one rank {par['nccl1_allreduce_ms']:.4f} ms, gloo "
+        f"two ranks {par['gloo_flat_ms']:.3f} ms; two-rank fit "
+        f"{par['gloo_fit_err']} / step {par['gloo_step_err']:.3g} vs one "
+        f"rank; distributed fit launches a rank over {par['fit_launches_its']}"
+        f" iterations {par['fit_ranks']}; sharded server launches "
+        f"{par['mesh_server']} on {card}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3066,4 +3562,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-job"]:
+        sys.exit(rank_job(sys.argv[2]))
     sys.exit(main())

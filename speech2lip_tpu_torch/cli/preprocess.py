@@ -10,6 +10,11 @@ fit), warp, uv_mapping, masks, crop_lip, audio_features, all.  The same
 flags, files and formats as the JAX CLI.  The nets and the tracker run on
 the card unless ``--device`` names another, in float32 with TF32 off.
 
+Started as N ranks (``python -m torch.distributed.run --nproc_per_node N
+-m speech2lip_tpu_torch.cli.preprocess track ...``), the ``track`` step
+splits its photometric frames over the ranks, as the JAX CLI shards them
+over its devices; rank 0 runs every other step and writes every file.
+
 3DMM assets (3DMM_info.npy / keys_info.npy / topology_info.npy) and the
 weights (fan.ckpt, s3fd.ckpt, dsfd.ckpt, bisenet.ckpt, deepspeech.ckpt in
 the JAX package's npz layout) are user-supplied.  ``main`` returns a
@@ -85,17 +90,34 @@ def main(argv=None):
     from speech2lip_tpu_torch.infer.renderer import resolve_device
     from speech2lip_tpu_torch.ops.nn import full_float32
 
+    import torch
+
+    from speech2lip_tpu_torch.parallel import distributed
+    from speech2lip_tpu_torch.parallel.mesh import make_mesh
+
     args = parse_args(argv)
     dev = resolve_device(args.device)
+    made = distributed.initialize_if_needed(dev)
+    dev = distributed.rank_device(dev)
+    # all ranks on the 'data' axis: the tracker's photometric phases
+    # split their frames over it (one process: no mesh)
+    mesh = (make_mesh(device=dev) if distributed.process_count() > 1
+            else None)
     summary = {"steps": [], "frames": {}, "seconds": {}}
-    with full_float32():
-        _run(args, dev, summary)
+    try:
+        with full_float32():
+            _run(args, dev, summary, mesh)
+    finally:
+        if made:
+            torch.distributed.destroy_process_group()
     return summary
 
 
-def _run(args, dev, summary):
+def _run(args, dev, summary, mesh=None):
     import numpy as np
     import torch
+
+    from speech2lip_tpu_torch.parallel.mesh import barrier
 
     from speech2lip_tpu_torch import weights
     from speech2lip_tpu_torch.core import checkpoint as ckpt
@@ -108,6 +130,9 @@ def _run(args, dev, summary):
         summary["seconds"][step] = time.perf_counter() - t0
 
     root = args.root
+    main = mesh is None or mesh.rank == 0
+    if args.step in ("extract", "crop_face") and not main:
+        return
     t0 = time.perf_counter()
     if args.step == "extract":
         # video -> ori_images/%05d.jpg + audio/audio.wav
@@ -139,6 +164,8 @@ def _run(args, dev, summary):
         return
 
     steps = [args.step] if args.step != "all" else ALL_STEPS
+    if not main:     # a rank other than 0 takes part in the track step only
+        steps = [s for s in steps if s == "track"]
     wpath = lambda name: os.path.join(args.weights_dir, name + ".ckpt")
 
     if "landmarks" in steps:
@@ -175,6 +202,7 @@ def _run(args, dev, summary):
     from speech2lip_tpu_torch.preprocess.tracker import (FaceTracker,
                                                          TrackerConfig)
 
+    barrier()      # rank 0's earlier steps are on disk
     frames = files = None
     if any(s in steps for s in ("track", "warp")):
         frames, files = _read_frames(os.path.join(root, "ori_images_face"))
@@ -199,15 +227,17 @@ def _run(args, dev, summary):
             iters_idexp=max(1, int(2000 * ts)),
             iters_photo=max(1, int(71 * ts)),
             iters_window=max(1, int(50 * ts)))
-        tr = FaceTracker(assets, lms, cfg, device=dev)
+        tr = FaceTracker(assets, lms, cfg, mesh=mesh, device=dev)
         focal = args.focal or tr.find_focal()
         timings = {}
         track = tr.fit(float(focal), images=frames, timings=timings)
-        np.savez(os.path.join(root, "track_params.pt.npz"), **track)
-        print("tracked; focal =", focal)
+        if main:
+            np.savez(os.path.join(root, "track_params.pt.npz"), **track)
+            print("tracked; focal =", focal)
         summary["focal"] = float(focal)
         summary["track_timings"] = timings
         done("track", t0, len(files))
+        barrier()      # the track file is on disk for every rank
 
     if "warp" in steps:
         t0 = time.perf_counter()

@@ -8,6 +8,10 @@ Trains on the card unless ``--device`` names another; ``--device cpu``
 runs the kernels' plain versions.  Resumes from the output directory's
 checkpoints by default; ``--exit-after`` checkpoints and exits with code 3
 after that many seconds.
+
+On N ranks, one a card (gloo ranks with ``--device cpu``):
+    python -m torch.distributed.run --nproc_per_node N \
+        -m speech2lip_tpu_torch.cli.train cfg.yaml
 """
 
 from __future__ import annotations
@@ -26,13 +30,21 @@ def main(argv=None):
                         help="torch device to train on (default: the card)")
     args = parser.parse_args(argv)
 
+    import torch.distributed as dist
+
     from speech2lip_tpu_torch.config import load_config
+    from speech2lip_tpu_torch.parallel.distributed import initialize_if_needed
     from speech2lip_tpu_torch.train.trainer import fit
 
-    cfg = load_config(args.config)
-    return fit(cfg, max_iters=args.max_iters,
-               exit_after=args.exit_after if args.exit_after > 0 else None,
-               device=args.device)
+    made = initialize_if_needed(args.device)
+    try:
+        cfg = load_config(args.config)
+        return fit(cfg, max_iters=args.max_iters,
+                   exit_after=args.exit_after if args.exit_after > 0
+                   else None, device=args.device)
+    finally:
+        if made:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -91,8 +91,9 @@ def save(path: str, tree: Any, scalars: Optional[Dict[str, Any]] = None):
 def _like(arr: np.ndarray, leaf):
     """``arr`` as the template leaf's type, dtype and device."""
     if isinstance(leaf, torch.Tensor):
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(
-            device=leaf.device, dtype=leaf.dtype)
+        # (ascontiguousarray makes a 0-d array 1-d: keep the shape)
+        return torch.from_numpy(np.ascontiguousarray(arr)).reshape(
+            arr.shape).to(device=leaf.device, dtype=leaf.dtype)
     if isinstance(leaf, int):
         return int(arr)
     return arr.astype(np.asarray(leaf).dtype)
@@ -184,18 +185,19 @@ class CheckpointManager:
     ``async_=True`` copies the tree to host numpy arrays on the calling
     thread, then writes the file on a background thread, so the training
     loop does not wait for the disk; the next write or restore joins it.
+
+    ``sharded=True`` writes each checkpoint as a directory through
+    ``core.checkpoint_sharded`` (every rank calls the save; writes are
+    synchronous), and ``restore`` reads such a directory wherever it
+    finds one, as the JAX package's manager does.
     """
 
     LATEST = "model.ckpt"
     BEST = "model_best.ckpt"
 
     def __init__(self, out_dir: str, sharded: bool = False):
-        if sharded:
-            raise NotImplementedError(
-                "sharded_ckpt: the multi-process checkpoint format "
-                "(core/checkpoint_sharded.py) is not ported; ROADMAP A4 "
-                "keeps it out of scope until one-GPU training matches")
         self.out_dir = out_dir
+        self.sharded = sharded
         os.makedirs(out_dir, exist_ok=True)
         self._pending: Optional[threading.Thread] = None
 
@@ -204,6 +206,11 @@ class CheckpointManager:
 
     def _write(self, path, tree, scalars, async_):
         self.wait()
+        if self.sharded:
+            from speech2lip_tpu_torch.core.checkpoint_sharded import \
+                save_sharded
+            save_sharded(path, tree, scalars)
+            return
         flat = flatten(tree)   # host snapshot before the step moves on
         if not async_:
             _save_flat(path, flat, scalars)
@@ -225,12 +232,22 @@ class CheckpointManager:
                     dict(scalars, it=it), async_)
 
     def save_best(self, tree, **scalars):
-        """Timestamped backup of the previous best, then overwrite."""
+        """Timestamped backup of the previous best, then overwrite.  Sharded:
+        rank 0 copies the backup directory, and a barrier keeps the other
+        ranks from overwriting their shard files while it copies."""
+        from speech2lip_tpu_torch.parallel import distributed
+        from speech2lip_tpu_torch.parallel.mesh import barrier
         best = self._p(self.BEST)
         self.wait()
-        if os.path.exists(best):
+        if os.path.exists(best) and (not self.sharded
+                                     or distributed.is_main_process()):
             ts = datetime.datetime.now().strftime("%Y%m%d%H%M%S")
-            shutil.copy2(best, best + "." + ts)
+            if os.path.isdir(best):
+                shutil.copytree(best, best + "." + ts)
+            else:
+                shutil.copy2(best, best + "." + ts)
+        if self.sharded:
+            barrier()
         self._write(best, tree, scalars, async_=False)
 
     def latest_step_file(self) -> Optional[str]:
@@ -253,4 +270,8 @@ class CheckpointManager:
         path = self._p(name) if name else self.latest_step_file()
         if path is None or not os.path.exists(path):
             return like, {}
+        if os.path.isdir(path):
+            from speech2lip_tpu_torch.core.checkpoint_sharded import \
+                restore_sharded
+            return restore_sharded(path, like)
         return load(path, like)

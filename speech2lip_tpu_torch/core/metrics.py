@@ -2,7 +2,7 @@
 a JSONL scalar stream mirrored to TensorBoard event files, a file and
 console logger, and image panels written as JPEGs.
 
-The port trains on one process, so ``is_main_process`` is always true.
+Under a process group only rank 0 writes them (``is_main_process``).
 """
 
 from __future__ import annotations
@@ -20,7 +20,8 @@ from speech2lip_tpu_torch.data import image_io
 
 
 def is_main_process() -> bool:
-    return True
+    from speech2lip_tpu_torch.parallel.distributed import is_main_process
+    return is_main_process()
 
 
 def setup_logger(out_dir: str, logfile: str = "train.log") -> logging.Logger:

@@ -16,6 +16,8 @@ import torch
 
 from speech2lip_tpu_torch.infer.renderer import (cast_tree, render_face_batch,
                                                  resolve_device)
+from speech2lip_tpu_torch.parallel.mesh import (all_gather_rows, data_size,
+                                                local_rows)
 
 # the batch entries the renderers read
 RENDER_KEYS = ("audio", "index", "rgb_face_zero", "rgb_face_ori",
@@ -83,6 +85,15 @@ class MultiSpeakerServer:
     here on both sides of its ``FUSED_BATCH_THRESHOLD``, which stays as
     the JAX server's switch.
 
+    ``mesh`` (``parallel.mesh.make_mesh``): the identities of each offset
+    group split over the ranks of its data axis, as the JAX server shards
+    a group's stacked parameters over ``data``: rank r serves the r-th
+    contiguous block of the group on its own device, through the same
+    path, and ``render_all`` gathers every identity's frames to every
+    rank.  A group of one identity is served by every rank, as the JAX
+    server replicates it; other group sizes must be multiples of the
+    axis.
+
     Runs on the card unless ``device`` names another.  On a CUDA device it
     runs the kernels, and ``use_kernels=False`` raises: the card serves no
     plain path.  On the CPU ``use_kernels`` defaults to False, the plain
@@ -100,11 +111,8 @@ class MultiSpeakerServer:
         """param_sets: [(params, unet_params, unet_state)] per identity;
         lip_positions: [(lip_x, lip_y)] per identity; window: the static
         warp window every identity's composite uses."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "MultiSpeakerServer(mesh=...): serving identities across "
-                "cards is not ported (ROADMAP A4, multi-GPU)")
-        self.device = resolve_device(device)
+        from speech2lip_tpu_torch.parallel.distributed import rank_device
+        self.device = rank_device(resolve_device(device))
         on_card = self.device.type == "cuda"
         if use_kernels is None:
             use_kernels = on_card
@@ -123,12 +131,27 @@ class MultiSpeakerServer:
             self.groups.setdefault((int(x), int(y)), []).append(i)
         self._offset = {i: off for off, ids in self.groups.items()
                         for i in ids}
-        self._param_sets = [
-            tuple(cast_tree(t, self.device, self.compute_dtype) for t in ps)
-            for ps in param_sets]
+        self.mesh = mesh
+        w = data_size(mesh)
+        # per group, the identities this rank serves
+        self._mine: Dict[tuple, List[int]] = {}
+        for off, ids in self.groups.items():
+            if len(ids) > 1 and len(ids) % w:
+                raise ValueError(
+                    f"offset group {off} holds {len(ids)} identities, which "
+                    f"do not split over {w} ranks: group sizes must be "
+                    f"multiples of the data axis, or 1")
+            self._mine[off] = (ids if len(ids) == 1
+                               else ids[local_rows(len(ids), mesh)])
+        self.served = [i for ids in self._mine.values() for i in ids]
+        self._param_sets = {
+            i: tuple(cast_tree(t, self.device, self.compute_dtype)
+                     for t in param_sets[i]) for i in self.served}
 
     def param_shardings(self) -> Dict[tuple, torch.device]:
-        """{offset group -> the device its identities' parameters are on}."""
+        """{offset group -> the device its identities' parameters are on}:
+        under a mesh, this rank's device, which holds the group's
+        identities ``served`` names."""
         return {off: self.device for off in self.groups}
 
     def _render(self, identity: int, batch: Dict[str, Any],
@@ -159,12 +182,23 @@ class MultiSpeakerServer:
     def render_all(self, batches: List[Dict[str, Any]]):
         """Serve every identity, group by group, each identity of a group
         in turn.  batches: per-identity frame batches of one size.
-        Returns the outputs indexed by identity."""
+        Returns the outputs indexed by identity.  Under a mesh each rank
+        renders its identities and the outputs are gathered to every
+        rank."""
         if len(batches) != self.n_identities:
             raise ValueError(f"need {self.n_identities} batches, "
                              f"got {len(batches)}")
         out: List[Any] = [None] * self.n_identities
-        for ids in self.groups.values():
-            for i in ids:
-                out[i] = self.render(i, batches[i])
+        for off, ids in self.groups.items():
+            mine = self._mine[off]
+            rendered = [self.render(i, batches[i]) for i in mine]
+            if len(mine) == len(ids):
+                for i, o in zip(mine, rendered):
+                    out[i] = o
+                continue
+            every = {key: all_gather_rows(
+                torch.stack([o[key] for o in rendered]), self.mesh)
+                for key in rendered[0]}
+            for k, i in enumerate(ids):
+                out[i] = {key: v[k] for key, v in every.items()}
         return out

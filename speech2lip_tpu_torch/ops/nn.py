@@ -71,17 +71,41 @@ def batchnorm(params, state, x, eps: float = 1e-5):
     return (x - state["mean"]) * inv + params["bias"]
 
 
+def _global_moments(x, dims, mesh):
+    """(mean, biased variance, count) of ``x`` over ``dims`` and over the
+    mesh's ranks, each holding as many rows: an all-reduced sum over the
+    global count, then an all-reduced sum of squared deviations (two
+    passes: E[x^2] - mean^2 cancels in float32).  Sums in float32, both
+    differentiable."""
+    from speech2lip_tpu_torch.parallel.mesh import all_sum
+    n = (x.numel() // x.shape[-1]) * mesh.data
+    xf = x.float()
+    mean = all_sum(xf.sum(dims), mesh) / n
+    var = all_sum(((xf - mean) ** 2).sum(dims), mesh) / n
+    return mean.to(x.dtype), var.to(x.dtype), n
+
+
 def batchnorm_train(params, state, x, momentum: float = 0.1,
                     eps: float = 1e-5):
     """Train-mode BatchNorm over the last axis, as torch's BatchNorm2d:
     normalises with the batch's biased variance and updates the running
     variance with the unbiased one.  Returns (y, new_state); the new state
-    carries no gradient."""
+    carries no gradient.
+
+    Inside a ``parallel.mesh.data_axis`` block of more than one rank the
+    batch is the global one, as under the JAX package's SPMD mesh: the
+    statistics and the unbiased correction's count are taken over every
+    rank's rows, so every rank keeps the same running state."""
+    from speech2lip_tpu_torch.parallel.mesh import active
     dims = tuple(range(x.dim() - 1))
-    mean = x.mean(dims)
-    var = x.var(dims, correction=0)
-    with torch.no_grad():
+    mesh = active()
+    if mesh is None:
+        mean = x.mean(dims)
+        var = x.var(dims, correction=0)
         n = x.numel() // x.shape[-1]
+    else:
+        mean, var, n = _global_moments(x, dims, mesh)
+    with torch.no_grad():
         unbiased = var * n / max(n - 1, 1)
         new_state = {
             "mean": (1 - momentum) * state["mean"] + momentum * mean,

@@ -15,7 +15,8 @@ package's optax Adam and piecewise-constant rates), one Adam per parameter
 as there, restarted at step 0 by every loop.  A step's work stays on the
 device: the loop reads nothing back.  The photometric term is a mean of
 per-frame terms, computed ``photo_chunk`` frames at a time under
-activation checkpointing.
+activation checkpointing; under a ``parallel.mesh`` mesh its frames split
+over the ranks.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from speech2lip_tpu_torch.ops.rasterize import (gather_rows, rasterize,
                                                 recompute_barycentrics)
+from speech2lip_tpu_torch.parallel import mesh as mesh_mod
 from speech2lip_tpu_torch.preprocess import face_3dmm as bfm
 from speech2lip_tpu_torch.train.train_step import Adam
 
@@ -70,10 +72,14 @@ def schedule(rate: float, boundaries: Optional[Dict[int, float]] = None):
 
 
 def adam_loop(loss_fn: Callable, params: Dict[str, torch.Tensor],
-              opts: Dict[str, Adam], n_iters: int) -> Dict[str, torch.Tensor]:
+              opts: Dict[str, Adam], n_iters: int,
+              mesh=None) -> Dict[str, torch.Tensor]:
     """``n_iters`` Adam steps on ``loss_fn(params)`` from a fresh optimizer
     state (step 0).  ``opts`` maps each key to its Adam; keys whose Adams
-    are the same object are updated together."""
+    are the same object are updated together.  Under a ``mesh`` the loss
+    splits its frames over the ranks (``FaceTracker.col_loss``) and each
+    step's gradients are averaged over them, so every rank takes the same
+    steps."""
     keys = list(params)
     p = {k: params[k].detach().clone() for k in keys}
     groups: Dict[int, list] = {}
@@ -84,8 +90,13 @@ def adam_loop(loss_fn: Callable, params: Dict[str, torch.Tensor],
     for _ in range(n_iters):
         q = {k: p[k].requires_grad_(True) for k in keys}
         loss = loss_fn(q)
-        grads = dict(zip(keys, torch.autograd.grad(
-            loss, [q[k] for k in keys], allow_unused=True)))
+        got = torch.autograd.grad(loss, [q[k] for k in keys],
+                                  allow_unused=True)
+        if mesh is not None:
+            got = mesh_mod.mean_tensors(
+                [torch.zeros_like(p[k]) if g is None else g
+                 for k, g in zip(keys, got)], mesh)
+        grads = dict(zip(keys, got))
         with torch.no_grad():
             for g, ks in groups.items():
                 gs = [grads[k] if grads[k] is not None
@@ -128,15 +139,14 @@ class FaceTracker:
         """lms: [N, 68, 2] detected 2-D landmarks.  The work runs on
         ``device`` (the assets' device unless named).
 
-        ``mesh``: the JAX package shards the photometric frames over a
-        mesh's 'data' axis; the port runs on one device, and a mesh with
-        more than one data device raises ``NotImplementedError``."""
-        if mesh is not None and dict(mesh.shape).get("data", 1) > 1:
-            raise NotImplementedError(
-                "FaceTracker: sharding the photometric frames over several "
-                "devices is not ported (ROADMAP A4)")
+        ``mesh``: a ``parallel.mesh`` mesh whose data axis splits the
+        photometric phases' frames over the ranks, as the JAX tracker
+        shards them over its mesh (phases c and d; the landmark phases
+        are cheap and run whole on every rank); None runs on one
+        device."""
         dev = torch.device(device) if device is not None else \
             assets.tris.device
+        self.mesh = mesh if mesh_mod.data_size(mesh) > 1 else None
         self.assets = bfm.assets_to(assets, dev)
         self.device = dev
         self.lms = torch.tensor(np.asarray(lms, np.float32), device=dev)
@@ -185,21 +195,39 @@ class FaceTracker:
                 * m / 255.0)
         return dist.sum((1, 2)) / torch.clamp_min(m.sum((1, 2)), 1e-6)
 
-    def col_loss(self, pix, colors, imgs):
-        """Photometric term == ``cal_col_loss(render, imgs, hit)``: the
-        visibility of the detached pixels, then the shading and distance
-        ``photo_chunk`` frames at a time under checkpointing (the backward
-        re-shades a chunk instead of keeping its intermediates)."""
+    def _chunked_terms(self, pix, colors, imgs):
         c = self.cfg
         frag = rasterize(pix.detach(), self.assets.tris, c.img_h, c.img_w,
                          **c.raster_kwargs)
         step = min(c.photo_chunk, pix.shape[0])
-        terms = [checkpoint(self._frame_terms, pix[s:s + step],
-                            colors[s:s + step], imgs[s:s + step],
-                            frag.pix_to_face[s:s + step],
-                            use_reentrant=False)
-                 for s in range(0, pix.shape[0], step)]
-        return torch.cat(terms).mean()
+        return torch.cat([checkpoint(self._frame_terms, pix[s:s + step],
+                                     colors[s:s + step], imgs[s:s + step],
+                                     frag.pix_to_face[s:s + step],
+                                     use_reentrant=False)
+                          for s in range(0, pix.shape[0], step)])
+
+    def col_loss(self, pix, colors, imgs):
+        """Photometric term == ``cal_col_loss(render, imgs, hit)``: the
+        visibility of the detached pixels, then the shading and distance
+        ``photo_chunk`` frames at a time under checkpointing (the backward
+        re-shades a chunk instead of keeping its intermediates).
+
+        Under a mesh each rank rasterizes and shades its block of the
+        frames, padded as the JAX tracker pads them to a multiple of the
+        axis (repeats of weight 0), and the weighted sum is summed over
+        the ranks (JAX's ``psum``): every rank returns the whole term, and
+        the gradients, averaged over the ranks (``adam_loop``), are the
+        term's."""
+        if self.mesh is None:
+            return self._chunked_terms(pix, colors, imgs).mean()
+        w, b = self.mesh.data, pix.shape[0]
+        per = -(-b // w)
+        idx = torch.arange(self.mesh.rank * per,
+                           (self.mesh.rank + 1) * per, device=pix.device)
+        weight = (idx < b).to(pix.dtype)
+        idx = torch.where(idx < b, idx, (idx - b) % b)
+        terms = self._chunked_terms(pix[idx], colors[idx], imgs[idx])
+        return mesh_mod.all_sum((terms * weight).sum(), self.mesh) / b
 
     def _pix_colors(self, id_para, texv, exp, euler, trans, light,
                     focal: float):
@@ -292,7 +320,10 @@ class FaceTracker:
                 final = float(self.landmark_loss(p, lms, f))
             if final < best_loss:
                 best_loss, best_focal = final, focal
-        return float(best_focal)
+        # rank 0's pick on every rank (the ranks fit alike, but need not
+        # round alike on other cards)
+        best = torch.tensor(float(best_focal), device=self.device)
+        return float(mesh_mod.replicate(best, self.mesh))
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -339,6 +370,9 @@ class FaceTracker:
                        + 0.5 * torch.mean(q["id"] ** 2)
                        + 0.4 * torch.mean(q["exp"] ** 2)),
             p, {k: opt_b for k in p}, c.iters_idexp)
+        # the landmark phases ran whole on every rank: rank 0's result
+        # starts the photometric phases everywhere
+        p = mesh_mod.replicate(p, self.mesh)
         t0 = mark("phase_b_idexp", t0)
 
         if images is None:
@@ -363,12 +397,12 @@ class FaceTracker:
         photo = adam_loop(
             lambda q: self.photo_loss(q, sel_imgs, sel_lms, (3.0, 2.0, 1.0),
                                       focal),
-            photo, opts, min(51, c.iters_photo))
+            photo, opts, min(51, c.iters_photo), self.mesh)
         if c.iters_photo > 51:
             photo = adam_loop(
                 lambda q: self.photo_loss(q, sel_imgs, sel_lms,
                                           (0.05, 1.0, 0.8), focal),
-                photo, opts, c.iters_photo - 51)
+                photo, opts, c.iters_photo - 51, self.mesh)
         t0 = mark("phase_c_photometric", t0)
         p["id"] = photo["id"]
         tex = photo["tex"]
@@ -404,13 +438,15 @@ class FaceTracker:
             q = adam_loop(
                 lambda q_: self.window_loss(q_, sel_imgs, sel_lms, id_para,
                                             texv, before, 8.0, focal),
-                q, {k: opt for k in keys}, min(31, c.iters_window))
+                q, {k: opt for k in keys}, min(31, c.iters_window),
+                self.mesh)
             if c.iters_window > 31:
                 q = adam_loop(
                     lambda q_: self.window_loss(q_, sel_imgs, sel_lms,
                                                 id_para, texv, before, 1.5,
                                                 focal),
-                    q, {k: opt for k in keys}, c.iters_window - 31)
+                    q, {k: opt for k in keys}, c.iters_window - 31,
+                    self.mesh)
             exp, euler, trans, light = (t.clone() for t in
                                         (exp, euler, trans, light))
             exp[sel], euler[sel] = q["exp"], q["euler"]

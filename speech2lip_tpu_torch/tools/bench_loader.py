@@ -11,7 +11,10 @@ the black-hole augmentation's two host warps (``blackaug_statics``) and
 the sync-loss extras (5 coord grids, 5 decodes resized to 96x96, the mel
 window); then ``stack_batch`` and the copy to ``--device``.  Prints one
 JSON line of milliseconds per batch.  The parts are timed apart from
-``load_frame`` itself, which is timed whole.
+``load_frame`` itself, which is timed whole.  It also times the stage-1
+iterator (the sync loss off) with the Python reader and with the
+prefetcher ``fit`` takes (``prefetch_backend``: the native runtime or
+the cv2 thread pool), and names that backend.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ from speech2lip_tpu_torch.data.dataset import LipDataset, stack_batch
 from speech2lip_tpu_torch.data.image_io import imread_float
 from speech2lip_tpu_torch.data.synthetic import (make_learnable_tree,
                                                  synthetic_config)
-from speech2lip_tpu_torch.train.trainer import batch_iterator, to_device
+from speech2lip_tpu_torch.train.trainer import (batch_iterator,
+                                                prefetch_backend, to_device)
 
 
 def _ms(fn):
@@ -105,7 +109,20 @@ def main(argv=None) -> dict:
                 break
         iterator_ms = 1e3 * (time.perf_counter() - t) / args.batches
         out = measure(tmp, cfg, args.batch, args.batches, device)
+        stage1 = LipDataset(tmp, "train", dict(cfg, training=dict(
+            cfg["training"], use_syncloss=False)))
+        backend = prefetch_backend(stage1)
+        stage1_ms = {}
+        for name, native in (("python", False), (backend, True)):
+            t = time.perf_counter()
+            for i, _ in enumerate(batch_iterator(stage1, args.batch, True, 0,
+                                                 use_native=native)):
+                if i + 1 == args.batches:
+                    break
+            stage1_ms[name] = 1e3 * (time.perf_counter() - t) / args.batches
     out["batch_iterator_ms_per_batch"] = iterator_ms
+    out["prefetch_backend"] = backend
+    out["stage1_iterator_ms_per_batch"] = stage1_ms
     out["device"] = (torch.cuda.get_device_name(0) if device.type == "cuda"
                      else "cpu")
     out["host_cpus"] = os.cpu_count()

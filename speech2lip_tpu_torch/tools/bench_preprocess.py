@@ -11,8 +11,13 @@ each phase's end).
         [--verts 34650] [--no-focal] [--budget-scale 0.1]
         [--image-size 500] [--json out.json] [--device cuda|cpu]
 
-``--scaling`` (the JAX tool's per-device share of a multi-device run)
-raises ``NotImplementedError``: the port runs the tracker on one device.
+``--scaling --devices N`` also runs the tool again as N ranks
+(``parallel.distributed.launch``: NCCL on the card, gloo on the CPU),
+whose tracker splits the photometric phases' frames over them, and adds
+their phase c/d seconds (rank 0's clock), the speed-up of phases c+d and
+the JAX tool's full-clip extrapolation table, from those N-rank times
+where the JAX tool simulates a device's share.  Started under a launcher,
+the tool is one of those ranks.
 """
 
 from __future__ import annotations
@@ -20,7 +25,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
+import os
+import subprocess
 import sys
+import tempfile
 import time
 
 BUDGETS = ("iters_focal_pose", "iters_focal_idexp", "iters_pose",
@@ -103,8 +112,12 @@ def main(argv=None):
     ap.add_argument("--no-focal", action="store_true",
                     help="skip the find_focal grid search")
     ap.add_argument("--scaling", action="store_true",
-                    help="the per-device share of a multi-device tracker "
-                         "(not ported)")
+                    help="also time phases c/d on --devices ranks and "
+                         "extrapolate full clips")
+    ap.add_argument("--devices", type=int, default=2,
+                    help="ranks of the --scaling run")
+    ap.add_argument("--clips", default="500,1000,5000",
+                    help="clip lengths (frames) for the extrapolation")
     ap.add_argument("--budget-scale", type=float, default=1.0,
                     help="multiply every tracker iteration budget")
     ap.add_argument("--image-size", type=int, default=500)
@@ -116,21 +129,23 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
-    if args.scaling:
-        raise NotImplementedError(
-            "bench_preprocess --scaling: the tracker's frames are not "
-            "sharded over devices in the port (ROADMAP A4)")
 
     import numpy as np
     import torch
 
     from speech2lip_tpu_torch.infer.renderer import resolve_device
     from speech2lip_tpu_torch.ops.nn import full_float32
+    from speech2lip_tpu_torch.parallel import distributed
+    from speech2lip_tpu_torch.parallel.mesh import make_mesh
     from speech2lip_tpu_torch.preprocess import face_3dmm as bfm
     from speech2lip_tpu_torch.preprocess.tracker import (FaceTracker,
                                                          TrackerConfig)
 
     dev = resolve_device(args.device)
+    made = distributed.initialize_if_needed(dev)
+    dev = distributed.rank_device(dev)
+    mesh = (make_mesh(device=dev) if distributed.process_count() > 1
+            else None)
     print(f"# building a {args.verts}-vertex synthetic BFM (id 100 / exp 79 "
           "/ tex 100)...", file=sys.stderr)
     assets = bfm.synthetic_assets(n_verts=args.verts, id_dim=100,
@@ -154,7 +169,7 @@ def main(argv=None):
                          if dev.type == "cuda" else "cpu"),
               "budgets": {f: getattr(cfg, f) for f in BUDGETS}}
     with full_float32():
-        tracker = FaceTracker(assets, lms, cfg, device=dev)
+        tracker = FaceTracker(assets, lms, cfg, mesh=mesh, device=dev)
         if not args.no_focal:
             t0 = time.perf_counter()
             focal = tracker.find_focal()
@@ -169,11 +184,55 @@ def main(argv=None):
         if args.profile:
             report.update(profile_photo(tracker, track, images, focal))
     report.update({k + "_s": v for k, v in timings.items()})
+    rank = 0
+    if mesh is not None:
+        report["ranks"], rank = mesh.data, mesh.rank
+    if made:
+        torch.distributed.destroy_process_group()
+    if rank:
+        return report
+    if args.scaling:
+        report.update(scaling(args, argv, cfg, n, timings))
     print(json.dumps(report))
     if args.json:
         with open(args.json, "w") as f:
             json.dump(report, f, indent=2)
     return report
+
+
+def scaling(args, argv, cfg, n: int, timings) -> dict:
+    """Phases c/d on ``--devices`` ranks (this tool again, launched),
+    beside this run's, and the JAX tool's full-clip extrapolation: phases
+    a/b scale with the frames, c is one key-frame fit, d one window per
+    ``batch_size`` frames."""
+    from speech2lip_tpu_torch.parallel.distributed import launch
+
+    d = args.devices
+    argv = [a for a in (sys.argv[1:] if argv is None else argv)
+            if a not in ("--scaling", "--profile")]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "ranks.json")
+        print(f"# phases c/d on {d} ranks...", file=sys.stderr)
+        launch(d, "speech2lip_tpu_torch.tools.bench_preprocess",
+               [*argv, "--no-focal", "--json", out],
+               stdout=subprocess.DEVNULL)
+        with open(out) as f:
+            ranks = json.load(f)
+    c1, d1 = timings["phase_c_photometric"], timings["phase_d_window"]
+    cd, dd = ranks["phase_c_photometric_s"], ranks["phase_d_window_s"]
+    ab_per_frame = (timings["phase_a_pose"] + timings["phase_b_idexp"]) / n
+    table = []
+    for clip in [int(x) for x in args.clips.split(",") if x]:
+        windows = math.ceil(clip / cfg.batch_size)
+        one = ab_per_frame * clip + c1 + windows * d1
+        many = ab_per_frame * clip + cd + windows * dd
+        table.append({"clip_frames": clip, "windows": windows,
+                      "chip1_min": one / 60, f"chips{d}_min": many / 60,
+                      "speedup": one / many})
+    return {"devices": d, "phase_c_photometric_ranks_s": cd,
+            "phase_d_window_ranks_s": dd,
+            "phase_cd_speedup_at_devices": (c1 + d1) / (cd + dd),
+            "extrapolation": table}
 
 
 if __name__ == "__main__":

@@ -40,8 +40,11 @@ rendered the frames).
 The STEP1 weights are drawn by the port's ``weights.random_fan`` /
 ``random_dsfd``, with numpy: another draw than the JAX tool's
 ``jax.random``, so the DSFD boxes of the two tools differ (the landmark
-points are replaced by the truth in both).  ``--devices`` above 1 (data
-parallelism across cards) belongs to the port's data-parallel slice.
+points are replaced by the truth in both).  ``--devices N`` above 1 runs
+the ``track`` and ``train`` steps as N ranks
+(``parallel.distributed.launch``: NCCL on N cards, gloo on the CPU), in
+place of the JAX tool's N virtual devices; their ``part`` result is then
+the launcher's completed process.
 """
 
 from __future__ import annotations
@@ -212,7 +215,8 @@ def parse_args(argv=None):
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device to run on (default: the card)")
     ap.add_argument("--devices", type=int, default=1,
-                    help="cards to train on; only 1 so far")
+                    help="ranks of the track and train steps (cards, "
+                         "or gloo ranks with --device cpu)")
     ap.add_argument("--json", default=None)
     ap.add_argument("--psnr-bar", type=float, default=None)
     return ap.parse_args(argv)
@@ -249,11 +253,6 @@ def build_cfg(root: str, ckpt_dir: str, focal: float, args):
 
 def main(argv=None, part=None):
     args = parse_args(argv)
-    if args.devices > 1:
-        raise NotImplementedError(
-            "--devices > 1: training across cards belongs to the port's "
-            "data-parallel slice (parallel/, fit's data axis), not yet "
-            "ported")
     part = part or (lambda name: contextlib.nullcontext())
 
     import numpy as np
@@ -263,6 +262,7 @@ def main(argv=None, part=None):
     from speech2lip_tpu_torch.cli import preprocess as cli_pre
     from speech2lip_tpu_torch.config import save_config
     from speech2lip_tpu_torch.infer.renderer import resolve_device
+    from speech2lip_tpu_torch.parallel.distributed import launch
     from speech2lip_tpu_torch.train.trainer import fit
 
     device = resolve_device(args.device)
@@ -289,13 +289,17 @@ def main(argv=None, part=None):
         step["result"] = world
 
     def pre(name, *extra):
-        with timed(name) as step:
-            step["result"] = cli_pre.main([
-                name, "--root", root, "--assets", world["assets_dir"],
+        argv = [name, "--root", root, "--assets", world["assets_dir"],
                 "--crop_size", str(args.crop), "--lip_w", str(args.lip_w),
                 "--lip_h", str(args.lip_h),
                 "--track_scale", str(args.track_scale),
-                "--weights_dir", wdir, "--device", str(device), *extra])
+                "--weights_dir", wdir, "--device", str(device), *extra]
+        with timed(name) as step:
+            step["result"] = (
+                launch(args.devices, "speech2lip_tpu_torch.cli.preprocess",
+                       argv)
+                if name == "track" and args.devices > 1
+                else cli_pre.main(argv))
 
     pre("extract", "--video", os.path.join(out, "clip.avi"))
     c = world["raw"] // 2
@@ -322,7 +326,12 @@ def main(argv=None, part=None):
     cfg_path = os.path.join(out, "config.yaml")
     save_config(cfg_path, cfg)
     with timed("train") as step:
-        step["result"] = fit(cfg, max_iters=args.iters, device=device)
+        step["result"] = (
+            launch(args.devices, "speech2lip_tpu_torch.cli.train",
+                   [cfg_path, "--max-iters", args.iters, "--device",
+                    device.type])
+            if args.devices > 1
+            else fit(cfg, max_iters=args.iters, device=device))
 
     traj = []
     with open(os.path.join(ckpt_dir, "metrics.jsonl")) as f:

@@ -41,6 +41,8 @@ from speech2lip_tpu_torch.ops.geometry import (backproject_depth, intrinsics,
                                                warp_grid_points)
 from speech2lip_tpu_torch.ops.grid_sample import grid_sample_onehot_border
 from speech2lip_tpu_torch.ops.kernels.hat_sample import hat_sample
+from speech2lip_tpu_torch.ops.nn import full_float32
+from speech2lip_tpu_torch.parallel import mesh as mesh_mod
 from speech2lip_tpu_torch.train import losses
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -151,13 +153,23 @@ def tree_unflatten(tree, leaves):
 # -- randomness --------------------------------------------------------------
 
 def draw_noise(st: StepStatics, batch_size: int, device=None,
-               generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+               generator: Optional[torch.Generator] = None,
+               mesh=None) -> Dict[str, Any]:
     """The step's random draws, all float32:
     ``lip`` (and ``sync_lip`` for the B*T sync frames): ``eps_u``
     uniform [n] for the ensemble shift, ``uv`` normal [lip_h*lip_w, 2] and
     ``audio`` normal [n, 64] when those noises are on; ``hole1``/``hole2``
     normal [B, face_h, face_w, 1] and ``apply_u`` a uniform scalar for the
-    black-hole augmentation."""
+    black-hole augmentation.
+
+    Under a ``mesh`` of W ranks ``batch_size`` is the rank's: every rank
+    draws the global batch's noise (B*W frames) from its generator, seeded
+    alike on every rank, and keeps its own rows, so the union of a step's
+    draws over the ranks is a one-process step's on the global batch."""
+    w = mesh_mod.data_size(mesh)
+    if w > 1:
+        return shard_draws(draw_noise(st, batch_size * w, device, generator),
+                           mesh)
     kw = dict(device=device, generator=generator)
 
     def lip(n):
@@ -177,6 +189,26 @@ def draw_noise(st: StepStatics, batch_size: int, device=None,
     if st.sync_on:
         draws["sync_lip"] = lip(batch_size * st.sync_T)
     return draws
+
+
+def shard_draws(draws: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """This rank's rows of ``draw_noise``'s draws for the global batch:
+    the per-frame entries (``eps_u``, ``audio``, ``hole1``, ``hole2``; the
+    sync frames' in b-major order) split as ``parallel.mesh.local_rows``
+    splits the batch, the shared ones (``uv``, ``apply_u``) kept whole."""
+    if mesh_mod.data_size(mesh) <= 1:
+        return draws
+    per_row = ("eps_u", "audio", "hole1", "hole2")
+
+    def take(d):
+        return {k: (v[mesh_mod.local_rows(v.shape[0], mesh)]
+                    if k in per_row else v) for k, v in d.items()}
+
+    out = take(draws)
+    for k in ("lip", "sync_lip"):
+        if k in draws:
+            out[k] = take(draws[k])
+    return out
 
 
 # -- the step ----------------------------------------------------------------
@@ -479,43 +511,69 @@ def init_train_state(params, unet_params, unet_state,
                       optimizer.init(leaves), 0)
 
 
+def reduce_metrics(metrics: Dict[str, torch.Tensor], mesh
+                   ) -> Dict[str, torch.Tensor]:
+    """The ranks' metrics as the global batch's: each the mean over the
+    ranks (one all-reduce), and ``psnr`` taken again from the global
+    ``loss_rgb``.  Unchanged at one rank."""
+    if mesh_mod.data_size(mesh) <= 1:
+        return metrics
+    metrics = mesh_mod.mean_dict(
+        {k: v for k, v in metrics.items() if k != "psnr"}, mesh)
+    metrics["psnr"] = losses.psnr_from_mse(metrics["loss_rgb"])
+    return metrics
+
+
 def loss_and_grads(params, unet_params, unet_state, frozen, batch, draws,
-                   st: StepStatics):
+                   st: StepStatics, mesh=None):
     """``compute_losses`` and its gradients with respect to every leaf of
     {"model": params, "unet": unet_params}, in ``tree_leaves`` order (zeros
     for the U-Net when ``postnet_frozen``).  Returns (grads, metrics with
-    ``grad_norm``, new U-Net BN state, the trainable tree)."""
+    ``grad_norm``, new U-Net BN state, the trainable tree).
+
+    Under a ``mesh`` of W > 1 ranks ``batch`` and ``draws`` are the rank's
+    rows of the global batch: the losses run inside
+    ``parallel.mesh.data_axis`` (global BatchNorm statistics and masked
+    sums), the gradients are averaged over the ranks through one
+    all-reduce of one flat buffer before ``grad_norm``, and the metrics
+    are the global batch's.  Float32 work runs without TF32
+    (``ops.nn.full_float32``), as on the CPU."""
     trainable = {
         "model": tree_map(lambda t: t.detach().requires_grad_(True), params),
         "unet": tree_map(lambda t: t.detach().requires_grad_(
             not st.postnet_frozen), unet_params)}
-    total, (metrics, new_unet_state) = compute_losses(
-        trainable["model"], trainable["unet"], unet_state, frozen, batch,
-        draws, st)
-    leaves = tree_leaves(trainable)
-    need = [t for t in leaves if t.requires_grad]
-    got = iter(torch.autograd.grad(total, need, allow_unused=True))
+    with full_float32(), mesh_mod.data_axis(mesh):
+        total, (metrics, new_unet_state) = compute_losses(
+            trainable["model"], trainable["unet"], unet_state, frozen,
+            batch, draws, st)
+        leaves = tree_leaves(trainable)
+        need = [t for t in leaves if t.requires_grad]
+        got = iter(torch.autograd.grad(total, need, allow_unused=True))
     grads = [next(got) if t.requires_grad else None for t in leaves]
     grads = [torch.zeros_like(t) if g is None else g
              for g, t in zip(grads, leaves)]
-    metrics = {k: v.detach() for k, v in metrics.items()}
+    grads = mesh_mod.mean_tensors(grads, mesh)
+    metrics = reduce_metrics({k: v.detach() for k, v in metrics.items()},
+                             mesh)
     metrics["grad_norm"] = torch.nn.utils.get_total_norm(grads)
     return grads, metrics, new_unet_state, trainable
 
 
-def make_train_step(optimizer: Adam, st: StepStatics, frozen):
+def make_train_step(optimizer: Adam, st: StepStatics, frozen, mesh=None):
     """The train step ``step(state, batch, draws) -> (new_state, metrics)``.
 
     Metrics are 0-d tensors and include ``grad_norm``, the global L2 norm
     of the gradients.  With ``postnet_frozen`` the U-Net's gradients are
     zero and its Adam updates are masked, not only its gradients: its
     parameters stay bit-identical (Adam's moments would otherwise keep
-    moving them for ~1/(1-b1) steps)."""
+    moving them for ~1/(1-b1) steps).  With a ``mesh`` the step is the
+    JAX mesh step's on the global batch (``loss_and_grads``); every rank
+    ends it with the same state."""
 
     def step(state: TrainState, batch, draws):
         grads, metrics, new_unet_state, trainable = loss_and_grads(
             state.params, state.unet_params, state.unet_state, frozen, batch,
-            draws, st)
+            draws, st, mesh)
         leaves = tree_leaves(trainable)
         updates, new_opt = optimizer.update(grads, state.opt_state)
         n_model = len(tree_leaves(trainable["model"]))
@@ -532,15 +590,20 @@ def make_train_step(optimizer: Adam, st: StepStatics, frozen):
 
 
 def draw_chunk_noise(n_chunks: int, batch_size: int, device=None,
-                     generator: Optional[torch.Generator] = None
-                     ) -> Dict[str, torch.Tensor]:
+                     generator: Optional[torch.Generator] = None,
+                     mesh=None) -> Dict[str, torch.Tensor]:
     """The chunked step's draws: ``eps_u`` uniform [n_chunks, B], one
-    ensemble shift per frame and chunk."""
-    return {"eps_u": torch.rand(n_chunks, batch_size, device=device,
-                                generator=generator)}
+    ensemble shift per frame and chunk.  Under a ``mesh`` each rank draws
+    the global batch's [n_chunks, B*W] and keeps its own columns."""
+    w = mesh_mod.data_size(mesh)
+    eps = torch.rand(n_chunks, batch_size * w, device=device,
+                     generator=generator)
+    return {"eps_u": eps[:, mesh_mod.local_rows(batch_size * w, mesh)]
+            if w > 1 else eps}
 
 
-def make_chunked_train_step(optimizer: Adam, st: StepStatics, n_chunks: int):
+def make_chunked_train_step(optimizer: Adam, st: StepStatics, n_chunks: int,
+                            mesh=None):
     """Per-ray-chunk stepping: each frame's H*W pixels split into
     ``n_chunks`` chunks, with one Adam step over ``params`` per chunk, in
     order.  ``step(state, batch, draws) -> (new_state, metrics)``, draws
@@ -549,7 +612,9 @@ def make_chunked_train_step(optimizer: Adam, st: StepStatics, n_chunks: int):
     This regime carries the lip photometric loss only (the caller rejects
     the other loss flags), in float32; the U-Net and its state pass
     through unchanged.  Metrics: ``loss`` = ``loss_rgb``, the mean of the
-    chunk losses, and ``psnr``."""
+    chunk losses, and ``psnr``.  Under a ``mesh`` each chunk's gradients
+    are averaged over the ranks (the chunk loss is a plain mean) and the
+    metrics are the global batch's."""
     n = st.lip_h * st.lip_w
     if n % n_chunks:
         raise ValueError(f"{n_chunks} chunks must divide H*W={n}")
@@ -570,6 +635,10 @@ def make_chunked_train_step(optimizer: Adam, st: StepStatics, n_chunks: int):
         return losses.photometric_loss(pred, tgt, weight=st.w_photometric)
 
     def step(state: TrainState, batch, draws):
+        with full_float32():
+            return run(state, batch, draws)
+
+    def run(state: TrainState, batch, draws):
         b = batch["audio"].shape[0]
         t_idx = batch["index"].float()
         coords = get_coords(st.lip_w, st.lip_h, device=batch["audio"].device)
@@ -585,11 +654,13 @@ def make_chunked_train_step(optimizer: Adam, st: StepStatics, n_chunks: int):
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             grads = [torch.zeros_like(t) if g is None else g
                      for g, t in zip(grads, leaves)]
+            grads = mesh_mod.mean_tensors(grads, mesh)
             updates, opt_state = optimizer.update(grads, opt_state)
             params = tree_unflatten(p, [(t + u).detach()
                                         for t, u in zip(leaves, updates)])
             chunk_losses.append(loss.detach())
         loss_rgb = torch.stack(chunk_losses).mean()
+        (loss_rgb,) = mesh_mod.mean_tensors([loss_rgb], mesh)
         metrics = {"loss": loss_rgb, "loss_rgb": loss_rgb,
                    "psnr": losses.psnr_from_mse(loss_rgb)}
         return TrainState(params, state.unet_params, state.unet_state,

@@ -6,9 +6,13 @@ step-tagged and best checkpoints, periodic validation and visualisation,
 non-finite loss and weight checks, the staging boundary (sync loss on and
 U-Net frozen) as a rebuild of the step, per-ray-chunk stepping when
 ``batch_rays`` < H*W, ``max_iters`` and a time-limited exit with code 3.
-It trains on one device, the card unless the caller names another; the
-step's random draws come from a ``torch.Generator`` seeded from
+It trains on the card unless the caller names another device; the step's
+random draws come from a ``torch.Generator`` seeded from
 ``training.seed``, and each batch goes to the device once per iteration.
+Started as N ranks (``python -m torch.distributed.run --nproc_per_node
+N``), it trains on the ``parallel.mesh`` data axis as the JAX loop trains
+on its mesh: each rank reads its slice of every epoch, and the step is
+the JAX mesh step's on the global batch.
 The depth-loss helpers compute the canonical-depth loss's support with
 numpy from the identity's canonical masks.
 """
@@ -16,6 +20,7 @@ numpy from the identity's canonical masks.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import time
 from typing import Any, Dict, Iterator, Optional, Tuple
@@ -34,6 +39,8 @@ from speech2lip_tpu_torch.infer.renderer import (render_lip_batch,
                                                  resolve_device)
 from speech2lip_tpu_torch.models import talking_face as tf
 from speech2lip_tpu_torch.ops.flowviz import extract_flow, flow_to_image
+from speech2lip_tpu_torch.parallel import distributed
+from speech2lip_tpu_torch.parallel import mesh as mesh_mod
 from speech2lip_tpu_torch.train import train_step as ts
 
 # batch entries only the sync stage reads
@@ -221,24 +228,80 @@ def load_frozen_weights(cfg: Dict[str, Any], frozen: Dict[str, Any]):
 
 # -- data --------------------------------------------------------------------
 
+def prefetch_backend(ds: LipDataset, use_native: bool = True
+                     ) -> Optional[str]:
+    """The prefetcher backend ``batch_iterator`` reads ``ds`` with
+    (``data.native_loader.pick_backend``), or None for the Python reader:
+    without ``use_native``, and for the sync stage's training split, whose
+    extras (multi-frame windows) the Python reader builds, as in the JAX
+    trainer."""
+    if not use_native or (ds.use_syncloss and ds.mode == "train"):
+        return None
+    from speech2lip_tpu_torch.data.native_loader import pick_backend
+    return pick_backend()
+
+
+def _prefetcher(ds: LipDataset, backend: str):
+    """A ``SamplePrefetcher`` over each frame's lip JPEG, face JPEG and
+    coord grid."""
+    from speech2lip_tpu_torch.data.native_loader import SamplePrefetcher
+    files = []
+    for pos in range(len(ds)):
+        idx = ds._index_map[pos]
+        files.append([os.path.join(ds.images_dir, ds.files[idx]),
+                      os.path.join(ds.faces_dir, ds.files[idx]),
+                      os.path.join(ds.coords_dir, ds.coord_files[idx])])
+    specs = [("jpeg", (ds.lip_h, ds.lip_w)), ("jpeg", (ds.face_h, ds.face_w)),
+             ("npy", (ds.face_h, ds.face_w, 2))]
+    return SamplePrefetcher(files, specs, backend=backend)
+
+
 def batch_iterator(ds: LipDataset, batch_size: int, shuffle: bool,
-                   seed: int, n_proc: int = 1, proc_id: int = 0
+                   seed: int, n_proc: int = 1, proc_id: int = 0,
+                   use_native: bool = True
                    ) -> Iterator[Dict[str, np.ndarray]]:
-    """One epoch of host batches (numpy), in the order of
-    ``np.random.default_rng(seed)``'s shuffle, as the JAX trainer's.  The
-    Python reader only: the JAX package's native prefetcher is not
-    ported (ROADMAP A4)."""
+    """One epoch of this rank's host batches (numpy): the order of
+    ``np.random.default_rng(seed)``'s shuffle, as the JAX trainer's, and of
+    it the frames ``proc_id::n_proc``.  Every rank yields as many batches,
+    those of the smallest slice, so the ranks step together.
+
+    The heavy per-frame files (lip and face JPEGs, the coord grid) stream
+    through a ``SamplePrefetcher`` (``prefetch_backend``) while the cheap
+    in-memory fields come from the Python reader; ``use_native=False``
+    reads everything in Python."""
     rng = np.random.default_rng(seed)
     order = np.arange(len(ds))
     if shuffle:
         rng.shuffle(order)
     order = order[proc_id::n_proc]
-    if len(order) < batch_size:
+    n_batches = (len(ds) // n_proc) // batch_size
+    if n_batches < 1:
         raise ValueError(
             f"per-host batch_size={batch_size} exceeds this host's dataset "
             f"slice ({len(order)} frames): reduce training.batch_size")
-    for i in range(0, len(order) - batch_size + 1, batch_size):
-        yield stack_batch([ds.load_frame(int(j)) for j in order[i:i + batch_size]])
+    order = order[:n_batches * batch_size]
+    backend = prefetch_backend(ds, use_native)
+    if backend is None:
+        for i in range(0, len(order), batch_size):
+            yield stack_batch([ds.load_frame(int(j))
+                               for j in order[i:i + batch_size]])
+        return
+    prefetcher = _prefetcher(ds, backend)
+    try:
+        prefetcher.start_epoch([int(i) for i in order])
+        for i in range(0, len(order), batch_size):
+            samples = []
+            for j in order[i:i + batch_size]:
+                idx, (rgb, face_ori, coord) = prefetcher.pop()
+                assert idx == int(j), (idx, j)
+                s = ds.load_frame_light(idx)
+                s.update({"rgb": rgb, "rgb_face_ori": face_ori,
+                          "coord": coord})
+                s.update(ds.blackaug_statics(coord))
+                samples.append(s)
+            yield stack_batch(samples)
+    finally:
+        prefetcher.close()
 
 
 def to_device(host_batch: Dict[str, np.ndarray], device
@@ -291,21 +354,6 @@ def visualize(params, cfg, ds: LipDataset, metrics_w: MetricsWriter, it: int,
 
 # -- the loop ----------------------------------------------------------------
 
-def _one_device(cfg: Dict[str, Any]):
-    shape = cfg["parallel"].get("mesh_shape")
-    if not shape:
-        return
-    if int(shape[0]) > 1:
-        raise NotImplementedError(
-            f"parallel.mesh_shape={list(shape)} asks for {shape[0]} data "
-            f"devices: the port trains on one card; multi-GPU data "
-            f"parallelism through torch.distributed/NCCL is ROADMAP A4")
-    if len(shape) > 1 and int(shape[1]) > 1:
-        raise NotImplementedError(
-            f"parallel.mesh_shape={list(shape)}: the 'pixel' mesh axis is "
-            f"out of scope until one-GPU training matches (ROADMAP A4)")
-
-
 def _n_chunks(cfg: Dict[str, Any], ds: LipDataset) -> int:
     """Chunks of the per-ray-chunk regime, 1 for whole-frame steps.  That
     regime carries only the lip photometric loss: the other loss flags are
@@ -328,6 +376,16 @@ def _n_chunks(cfg: Dict[str, Any], ds: LipDataset) -> int:
     return n_rays // batch_rays
 
 
+def _rank_logger(out_dir: str, logfile: str) -> logging.Logger:
+    """Rank 0's file and console logger; other ranks log warnings only."""
+    if distributed.is_main_process():
+        return setup_logger(out_dir, logfile)
+    logger = logging.getLogger(
+        f"speech2lip_tpu_torch.rank{distributed.process_index()}")
+    logger.setLevel(logging.WARNING)
+    return logger
+
+
 def fit(cfg: Dict[str, Any], max_iters: Optional[int] = None,
         exit_after: Optional[float] = None, device=None) -> ts.TrainState:
     """Train until ``max_iters`` or ``exit_after`` seconds (then a
@@ -335,15 +393,26 @@ def fit(cfg: Dict[str, Any], max_iters: Optional[int] = None,
 
     Each printed iteration's ``train/`` scalars add ``batch_ms`` (the host
     batch and its copy to the device) and ``step_ms`` (the step, up to the
-    loss read that waits for the device)."""
-    device = resolve_device(device)
+    loss read that waits for the device).
+
+    Under a process group of N ranks (``parallel.distributed``) the mesh
+    is ``parallel.mesh_shape`` (default ``[N, 1]``), each rank trains on
+    ``training.batch_size`` frames of a global batch of ``batch_size *
+    N``, and every rank ends each step with the same state.  Rank 0
+    writes the log, ``metrics.jsonl``, the images and the dense
+    checkpoints; with ``training.sharded_ckpt`` every rank takes part in
+    each save.  Validation runs on every rank, so that the best-metric
+    decision agrees across ranks."""
+    device = distributed.rank_device(resolve_device(device))
     tr = cfg["training"]
-    _one_device(cfg)
+    mesh = mesh_mod.make_mesh(cfg["parallel"].get("mesh_shape"), device)
+    main = distributed.is_main_process()
     out_dir = tr["out_dir"]
-    logger = setup_logger(out_dir, tr.get("logfile", "train.log"))
-    metrics_w = MetricsWriter(out_dir)
+    logger = _rank_logger(out_dir, tr.get("logfile", "train.log"))
+    metrics_w = MetricsWriter(out_dir) if main else None
     ckpt_mgr = CheckpointManager(out_dir,
                                  sharded=bool(tr.get("sharded_ckpt", False)))
+    ckpt_here = main or ckpt_mgr.sharded
 
     ds = LipDataset(cfg["data"]["path"], "train", cfg)
     val_ds = LipDataset(cfg["data"]["path"], "val", cfg)
@@ -360,7 +429,7 @@ def fit(cfg: Dict[str, Any], max_iters: Optional[int] = None,
 
     # resume by default; ``it`` counts completed optimizer steps
     tree, scalars = ckpt_mgr.restore(ts.state_to_tree(state, chunked))
-    state = ts.state_from_tree(tree)
+    state = mesh_mod.replicate(ts.state_from_tree(tree), mesh)
     it = int(scalars.get("it", 0))
     epoch_it = int(scalars.get("epoch_it", -1))
     metric_best = float(scalars.get("loss_val_best", -np.inf))
@@ -376,30 +445,49 @@ def fit(cfg: Dict[str, Any], max_iters: Optional[int] = None,
         if pts is not None:
             frozen["depth_pts"] = pts
     if chunked:
-        step_fn = ts.make_chunked_train_step(opt, statics, n_chunks)
+        step_fn = ts.make_chunked_train_step(opt, statics, n_chunks, mesh)
     else:
-        step_fn = ts.make_train_step(opt, statics, frozen)
+        step_fn = ts.make_train_step(opt, statics, frozen, mesh)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(tr.get("seed", 0)))
 
     t0 = time.time()
     t0b = time.time()
+    n_proc, proc_id = mesh.data, mesh.rank
     batch_size = int(tr["batch_size"])
-    if len(ds) < 1:
-        raise ValueError("the train split holds no frame")
-    if batch_size > len(ds):
-        logger.warning("batch %d exceeds the %d-frame train split; "
-                       "clamping to %d", batch_size, len(ds), len(ds))
-        batch_size = len(ds)
+    # the smallest rank's slice: every rank takes as many frames a step
+    host_frames = len(ds) // n_proc
+    if host_frames < 1:
+        raise ValueError(
+            f"the {len(ds)}-frame train split gives a rank no frame over "
+            f"{n_proc} ranks: data sharding needs >= 1 frame a rank; use a "
+            f"longer clip or fewer ranks")
+    if batch_size > host_frames:
+        logger.warning("batch %d a rank exceeds the %d-frame slice of a "
+                       "rank; clamping to %d", batch_size, host_frames,
+                       host_frames)
+        batch_size = host_frames
+    logger.info("mesh data=%d rank=%d device=%s; global batch %d; loader %s",
+                n_proc, proc_id, device, batch_size * n_proc,
+                prefetch_backend(ds) or "python")
 
     def save_tree():
         return ts.state_to_tree(state, chunked)
+
+    def time_is_up() -> bool:
+        """The time limit, decided alike on every rank (rank 0's clock)."""
+        up = time.time() - t0 >= exit_after
+        if n_proc == 1:
+            return up
+        flag = torch.tensor(float(main and up), device=device)
+        return bool(mesh_mod.sum_no_grad(flag, mesh) > 0)
 
     while True:
         epoch_it += 1
         t_it = time.perf_counter()
         for host_batch in batch_iterator(ds, batch_size, shuffle=True,
-                                         seed=epoch_it):
+                                         seed=epoch_it, n_proc=n_proc,
+                                         proc_id=proc_id):
             it += 1
 
             # staging boundary: rebuild the step once
@@ -410,15 +498,16 @@ def fit(cfg: Dict[str, Any], max_iters: Optional[int] = None,
                             it, sync_on, frozen_net)
                 statics = dataclasses.replace(statics, sync_on=sync_on,
                                               postnet_frozen=frozen_net)
-                step_fn = ts.make_train_step(opt, statics, frozen)
+                step_fn = ts.make_train_step(opt, statics, frozen, mesh)
 
             if not statics.sync_on:
                 host_batch = {k: v for k, v in host_batch.items()
                               if k not in _SYNC_KEYS}
             batch = to_device(host_batch, device)
             b = int(batch["audio"].shape[0])
-            draws = (ts.draw_chunk_noise(n_chunks, b, device, gen) if chunked
-                     else ts.draw_noise(statics, b, device, gen))
+            draws = (ts.draw_chunk_noise(n_chunks, b, device, gen, mesh)
+                     if chunked
+                     else ts.draw_noise(statics, b, device, gen, mesh))
             t_batch = time.perf_counter()
             state, m = step_fn(state, batch, draws)
 
@@ -430,12 +519,14 @@ def fit(cfg: Dict[str, Any], max_iters: Optional[int] = None,
                 logger.info("[Epoch %02d] it=%d loss=%.4f psnr=%.2f t=%.2fs",
                             epoch_it, it, loss, float(m["psnr"]),
                             time.time() - t0b)
-                metrics_w.scalars(it, dict(
-                    m, batch_ms=1e3 * (t_batch - t_it),
-                    step_ms=1e3 * (t_step - t_batch)), prefix="train/")
+                if main:
+                    metrics_w.scalars(it, dict(
+                        m, batch_ms=1e3 * (t_batch - t_it),
+                        step_ms=1e3 * (t_step - t_batch)), prefix="train/")
                 t0b = time.time()
 
-            if tr["checkpoint_every"] > 0 and it % tr["checkpoint_every"] == 0:
+            if (tr["checkpoint_every"] > 0 and it % tr["checkpoint_every"] == 0
+                    and ckpt_here):
                 bad = check_weights(state.params)
                 if bad:
                     raise FloatingPointError(
@@ -443,35 +534,41 @@ def fit(cfg: Dict[str, Any], max_iters: Optional[int] = None,
                 ckpt_mgr.save_latest(save_tree(), async_=True,
                                      epoch_it=epoch_it, it=it,
                                      loss_val_best=metric_best)
-            if tr["backup_every"] > 0 and it % tr["backup_every"] == 0:
+            if (tr["backup_every"] > 0 and it % tr["backup_every"] == 0
+                    and ckpt_here):
                 ckpt_mgr.save_step(save_tree(), it, async_=True,
                                    epoch_it=epoch_it,
                                    loss_val_best=metric_best)
 
             if (tr.get("visualize_every", 0) > 0
-                    and it % tr["visualize_every"] == 0):
+                    and it % tr["visualize_every"] == 0 and main):
                 visualize(state.params, cfg, val_ds, metrics_w, it, device)
 
             if (tr["validate_every"] > 0 and it % tr["validate_every"] == 0
                     and it != 0):
                 psnr = evaluate_psnr(state.params, cfg, val_ds,
                                      device=device)
-                metrics_w.scalars(it, {"psnr": psnr}, prefix="val/")
+                if main:
+                    metrics_w.scalars(it, {"psnr": psnr}, prefix="val/")
                 logger.info("validation psnr=%.4f", psnr)
                 if psnr > metric_best:
                     metric_best = psnr
-                    ckpt_mgr.save_best(save_tree(), epoch_it=epoch_it, it=it,
-                                       loss_val_best=metric_best)
+                    if ckpt_here:
+                        ckpt_mgr.save_best(save_tree(), epoch_it=epoch_it,
+                                           it=it, loss_val_best=metric_best)
 
-            if max_iters is not None and it >= max_iters:
-                ckpt_mgr.save_latest(save_tree(), epoch_it=epoch_it, it=it,
-                                     loss_val_best=metric_best)
-                metrics_w.close()
-                return state
-            if exit_after is not None and time.time() - t0 >= exit_after:
-                logger.info("time limit reached; checkpoint + exit(3)")
-                ckpt_mgr.save_latest(save_tree(), epoch_it=epoch_it, it=it,
-                                     loss_val_best=metric_best)
-                metrics_w.close()
+            done = max_iters is not None and it >= max_iters
+            if done or (exit_after is not None and time_is_up()):
+                if not done:
+                    logger.info("time limit reached; checkpoint + exit(3)")
+                if ckpt_here:
+                    ckpt_mgr.save_latest(save_tree(), epoch_it=epoch_it,
+                                         it=it, loss_val_best=metric_best)
+                ckpt_mgr.wait()
+                if main:
+                    metrics_w.close()
+                mesh_mod.barrier()
+                if done:
+                    return state
                 raise SystemExit(3)
             t_it = time.perf_counter()

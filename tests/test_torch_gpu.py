@@ -772,17 +772,9 @@ def test_dot_probe_raises_on_what_it_does_not_take(cuda):
         kdp.dot_probe(lhs, rhs.cpu(), 1)                      # two devices
 
 
-def test_fit_on_the_card_matches_the_cpu(cuda, tmp_path):
-    """Two float32 iterations of ``fit`` on a small identity, K2/K7
-    gathers forced on: the card (kernels) against the CPU (their plain
-    versions), from the same seeded init, the step's random draws off;
-    validation renders through K1."""
-    import json
-
+def _fit_cfg(tmp_path):
     from speech2lip_tpu_torch.data.synthetic import (make_synthetic_tree,
                                                      synthetic_config)
-    from speech2lip_tpu_torch.train import trainer
-
     root = str(tmp_path / "tree")
     cfg = synthetic_config(root, make_synthetic_tree(
         root, n_frames=12, face=64, lip_h=16, lip_w=24))
@@ -791,6 +783,33 @@ def test_fit_on_the_card_matches_the_cpu(cuda, tmp_path):
                            backup_every=0, validate_every=2,
                            visualize_every=0, use_local_ensemble=False,
                            use_syncloss=False, pallas_gather=True)
+    return cfg
+
+
+@pytest.fixture
+def default_tf32():
+    """torch's own float32 flags, as a user's process has them: cuDNN
+    convs may take TF32, cuBLAS matmuls may not."""
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = prev
+
+
+def test_fit_on_the_card_matches_the_cpu(cuda, default_tf32, tmp_path):
+    """Two float32 iterations of ``fit`` on a small identity, K2/K7
+    gathers forced on: the card (kernels) against the CPU (their plain
+    versions), from the same seeded init, the step's random draws off;
+    validation renders through K1.  The card runs with torch's default
+    TF32 flags, as ``cli/train`` does: ``fit`` pins full float32 itself."""
+    import json
+
+    from speech2lip_tpu_torch.train import trainer
+
+    cfg = _fit_cfg(tmp_path)
     recs = {}
     kws.launches = khs.dsrc_launches = khs.dgrid_launches = 0
     kmlp.launches = 0
@@ -811,6 +830,75 @@ def test_fit_on_the_card_matches_the_cpu(cuda, tmp_path):
                              "val/")):
                 assert abs(got[k] - ref[k]) <= 1e-4 * max(1.0, abs(ref[k])), \
                     (k, got[k], ref[k])
+
+
+def test_fit_runs_its_convs_without_tf32(cuda, default_tf32, tmp_path,
+                                        monkeypatch):
+    """Every float32 conv and matmul of a card ``fit`` step runs with TF32
+    off, whatever the process's flags say: the check fails when ``fit``
+    leaves TF32 on (ROADMAP C1)."""
+    import torch.nn.functional as F
+
+    from speech2lip_tpu_torch.train import trainer
+
+    seen = []
+    conv = F.conv2d
+
+    def spy(x, *args, **kw):
+        if x.is_cuda and x.dtype == torch.float32:
+            seen.append((torch.backends.cudnn.allow_tf32,
+                         torch.backends.cuda.matmul.allow_tf32))
+        return conv(x, *args, **kw)
+
+    monkeypatch.setattr(F, "conv2d", spy)
+    cfg = _fit_cfg(tmp_path)
+    cfg["training"].update(out_dir=str(tmp_path / "out"), validate_every=0)
+    trainer.fit(cfg, max_iters=1, device="cuda")
+    assert seen and not any(a or b for a, b in seen), seen[:3]
+    assert torch.backends.cudnn.allow_tf32       # the flags come back
+
+
+def test_one_rank_nccl_step_is_the_no_group_step(cuda, tmp_path):
+    """A train step under a one-rank NCCL group and its mesh against the
+    same step with no group: the mesh of one rank adds no collective, so
+    the two agree (to the card's run-to-run atomics order)."""
+    import torch.distributed as dist
+
+    from speech2lip_tpu_torch.parallel.mesh import make_mesh
+    from speech2lip_tpu_torch.tools import bench_train
+    from speech2lip_tpu_torch.train import train_step as ts
+
+    batch, geo, win, params, frozen = bench_train.train_inputs(
+        cuda, 2, 64, 16, 24, seed=0)
+    st = ts.StepStatics(lip_h=16, lip_w=24, lip_x=geo["lip_x"],
+                        lip_y=geo["lip_y"], face_h=64, face_w=64,
+                        focal=geo["focal"], window=win,
+                        face_bbox=(8, 8, 56, 56))
+    opt = ts.Adam(1e-4)
+    draws = ts.draw_noise(st, 2, device=cuda,
+                          generator=torch.Generator(cuda).manual_seed(1))
+    out = {}
+    for grouped in (False, True):
+        if grouped:
+            dist.init_process_group("nccl", rank=0, world_size=1,
+                                    init_method=f"file://{tmp_path}/pg")
+        try:
+            mesh = make_mesh(device=cuda) if grouped else None
+            new, m = ts.make_train_step(opt, st, frozen, mesh)(
+                ts.init_train_state(*params, opt), batch, draws)
+            if grouped:
+                x = torch.ones(4, device=cuda)
+                dist.all_reduce(x)
+                assert torch.equal(x, torch.ones(4, device=cuda))
+        finally:
+            if grouped:
+                dist.destroy_process_group()
+        out[grouped] = ({k: float(v) for k, v in m.items()},
+                        ts.tree_leaves(new.unet_state))
+    for k, v in out[False][0].items():
+        assert abs(out[True][0][k] - v) <= 1e-6 * max(1.0, abs(v)), k
+    for a, r in zip(out[True][1], out[False][1]):
+        assert _rel_err(a, r) < 1e-6
 
 
 # -- serving new audio: DeepSpeech, the splat, the server, pose editing -----

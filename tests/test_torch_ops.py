@@ -197,7 +197,8 @@ assert {pkg.__name__ + "." + m for m in (
     "tools.train_tiny_landmarks", "tools.bench_preprocess",
     "core.factory", "tools.convert_weights", "tools.reference_weights",
     "tools.full_pipeline_run", "tools.bench_train",
-    "tools.bench_components")} <= set(mods)
+    "tools.bench_components", "parallel.distributed", "parallel.mesh",
+    "core.checkpoint_sharded", "data.native_loader")} <= set(mods)
 
 def banned(name):
     top = name.split(".")[0]

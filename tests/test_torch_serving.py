@@ -131,10 +131,19 @@ def test_render_plain_is_the_plain_path_on_a_kernel_server(three):
 
 
 def test_server_refuses_mesh_and_plain_on_the_card(three, monkeypatch):
-    sets = [weights.from_jax(*s) for s in three["sets"][:1]]
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        tpipe.MultiSpeakerServer(three["cfg"], sets, three["positions"][:1],
-                                 device="cpu", mesh=object())
+    """A mesh whose data axis does not split an offset group is refused,
+    as the JAX server's sharding refuses it; a mesh of one rank serves
+    every identity; the card serves no plain path."""
+    from speech2lip_tpu_torch.parallel.mesh import Mesh, make_mesh
+    every = [weights.from_jax(*s) for s in three["sets"]]
+    with pytest.raises(ValueError, match="multiples of the data axis"):
+        tpipe.MultiSpeakerServer(three["cfg"], every,
+                                 [three["positions"][0]] * 3, device="cpu",
+                                 mesh=Mesh(2, 1, 0, torch.device("cpu")))
+    one = tpipe.MultiSpeakerServer(three["cfg"], every, three["positions"],
+                                   device="cpu", mesh=make_mesh())
+    assert sorted(one.served) == [0, 1, 2]
+    sets = every[:1]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpipe.MultiSpeakerServer(three["cfg"], sets, three["positions"][:1])

@@ -240,9 +240,27 @@ def test_pipeline_end_to_end_on_the_cpu(tmp_path):
     assert e.value.code == 1
 
 
-def test_pipeline_refuses_what_it_cannot_run(tmp_path):
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        pipe.main(["--out", str(tmp_path), "--devices", "2"])
+def test_pipeline_refuses_what_it_cannot_run(tmp_path, monkeypatch):
+    """``--devices 2`` hands the track step (and then train) to two
+    launched ranks, where the JAX tool forces two virtual devices: the
+    launch is recorded here and stopped.  Without ``--device`` the tool
+    asks for the card and raises where there is none."""
+    from speech2lip_tpu_torch.parallel import distributed
+
+    calls = []
+
+    def launch(n, module, args, **kw):
+        calls.append((n, module, list(args)))
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(distributed, "launch", launch)
+    with pytest.raises(KeyboardInterrupt):
+        pipe.main(["--out", str(tmp_path / "dev"), "--devices", "2",
+                   "--device", "cpu", *TINY])
+    ((n, module, args),) = calls
+    assert (n, module, args[0]) == (2, "speech2lip_tpu_torch.cli.preprocess",
+                                    "track")
+    assert args[args.index("--device") + 1] == "cpu"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             pipe.main(["--out", str(tmp_path), *TINY])

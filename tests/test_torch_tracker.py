@@ -257,13 +257,16 @@ def test_fit_with_images_runs(world):
 
 
 def test_mesh_over_devices_raises(world):
-    class Mesh:
-        shape = {"data": 2, "model": 1}
+    """A mesh asks for as many ranks as the group has (``ValueError``
+    otherwise, as the JAX mesh asks for devices) and no pixel axis; a mesh
+    of one rank leaves the tracker on one device."""
+    from speech2lip_tpu_torch.parallel.mesh import make_mesh
     _, ta, _, _, lms = world
-    with pytest.raises(NotImplementedError):
-        tt.FaceTracker(ta, lms, _cfg(tt), mesh=Mesh())
-    Mesh.shape = {"data": 1, "model": 1}
-    tt.FaceTracker(ta, lms, _cfg(tt), mesh=Mesh())
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        tt.FaceTracker(ta, lms, _cfg(tt), mesh=make_mesh((2, 1)))
+    with pytest.raises(NotImplementedError, match="pixel"):
+        make_mesh((1, 2))
+    assert tt.FaceTracker(ta, lms, _cfg(tt), mesh=make_mesh()).mesh is None
 
 
 def test_bench_preprocess_tool_runs(capsys):
@@ -279,5 +282,11 @@ def test_bench_preprocess_tool_runs(capsys):
     for k in ("phase_a_pose_s", "phase_b_idexp_s", "phase_c_photometric_s",
               "phase_d_window_s"):
         assert report[k] > 0
-    with pytest.raises(NotImplementedError):
-        bench_preprocess.main(["--scaling", "--device", "cpu"])
+    # --scaling: phases c/d again on two gloo ranks, launched
+    rep = bench_preprocess.main(
+        ["--frames", "3", "--verts", "120", "--image-size", "32",
+         "--budget-scale", "0.002", "--no-focal", "--scaling", "--devices",
+         "2", "--clips", "100", "--device", "cpu"])
+    assert rep["devices"] == 2 and rep["phase_c_photometric_ranks_s"] > 0
+    assert rep["phase_cd_speedup_at_devices"] > 0
+    assert [r["clip_frames"] for r in rep["extrapolation"]] == [100]
