@@ -87,6 +87,13 @@ made from a seed:
   checkpoint round trips into NaN templates at one and two ranks; and
   MultiSpeakerServer(mesh=) at one rank against the server with no mesh
   (K1/K2/K3 launches);
+- the pixel axis: four gloo ranks sharing the card (one
+  torch.distributed.run of ``--rank-job SPEC``), the train step at May
+  geometry under a (2, 2) and a (1, 4) mesh (the U-Net on a band of rows
+  a rank, 252/248 and 128/124/124/124, with halo exchanges), float32 and
+  bf16, against the one-process step on the global batch, every rank
+  ending alike, its K2/K7 launches a rank and the halos' bytes and ms;
+  MultiSpeakerServer and the tracker's photometric term under (2, 2);
 
 checks that the kernels carried each path (launch counts, set to 0 just
 before a path and read just after) and that the composite hands K2, and
@@ -1982,12 +1989,12 @@ def _rank_fit(cfg, iters, dev, counters):
     spent = []
     mean_tensors = mesh_mod.mean_tensors
 
-    def timed(tensors, mesh):
+    def timed(tensors, mesh, axis=mesh_mod.DATA):
         if mesh_mod.data_size(mesh) <= 1 or len(tensors) < 20:
-            return mean_tensors(tensors, mesh)     # metrics, not gradients
+            return mean_tensors(tensors, mesh, axis)   # metrics, not grads
         _sync(dev)
         t0 = time.perf_counter()
-        out = mean_tensors(tensors, mesh)
+        out = mean_tensors(tensors, mesh, axis)
         _sync(dev)
         spent.append(1e3 * (time.perf_counter() - t0))
         return out
@@ -2039,10 +2046,10 @@ def _sharded_roundtrip(tree, path) -> bool:
         for (ka, a), (kb, b) in pairs)
 
 
-def _server_job(dev, counters, face, lip_h, lip_w) -> dict:
-    """MultiSpeakerServer(mesh=) at this group's one rank against the
-    server with no mesh: two identities at one offset, a batch of 8 each
-    through the kernels."""
+def _server_job(dev, counters, face, lip_h, lip_w, shape=None) -> dict:
+    """MultiSpeakerServer(mesh=) on this group's mesh (``shape``, default
+    ``(world, 1)``) against the server with no mesh: two identities at one
+    offset, a batch of 8 each through the kernels."""
     from speech2lip_tpu_torch import weights
     from speech2lip_tpu_torch.config import default_config
     from speech2lip_tpu_torch.data.synthetic import synthetic_batch
@@ -2070,7 +2077,8 @@ def _server_job(dev, counters, face, lip_h, lip_w) -> dict:
         b["audio"] = b["audio"] + 0.1 * s
         batches.append(b)
     out = {}
-    for name, mesh in (("plain", None), ("mesh", make_mesh(device=dev))):
+    for name, mesh in (("plain", None), ("mesh", make_mesh(shape,
+                                                           device=dev))):
         srv = MultiSpeakerServer(cfg, sets, pos, window=window, device=dev,
                                  mesh=mesh)
         reset()
@@ -2083,8 +2091,9 @@ def _server_job(dev, counters, face, lip_h, lip_w) -> dict:
 
 
 def rank_job(spec_path: str) -> int:
-    """One process of phase 11 (``chip_smoke.py --rank-job SPEC``, started
-    through ``torch.distributed.run``).  ``nccl``: the spec's ungrouped
+    """One process of phase 11 or 12 (``chip_smoke.py --rank-job SPEC``,
+    started through ``torch.distributed.run``).  ``pixel``: phase 12
+    (``_pixel_rank_job``).  ``nccl``: the spec's ungrouped
     fits run first, with no process group; then the process joins the
     launcher's group as ``cli/train`` joins it (NCCL, one rank) and runs
     the rest.  ``gloo``: every rank joins a gloo group on card 0 first.
@@ -2102,6 +2111,8 @@ def rank_job(spec_path: str) -> int:
     from speech2lip_tpu_torch.train import train_step as ts
 
     spec = json.load(open(spec_path))
+    if spec["backend"] == "pixel":
+        return _pixel_rank_job(spec)
     dev = distributed.rank_device(spec["device"])
     if spec["backend"] == "gloo":
         dev = torch.device(spec["device"], 0 if dev.type == "cuda" else None)
@@ -2388,6 +2399,275 @@ def training_across_processes(dev, card: str, tmp: str) -> dict:
         f"server with no mesh (2 identities x 8 frames); launches "
         f"{sv['launches']}")
     out["mesh_server"] = sv["launches"]
+    return out
+
+
+# the pixel axis (phase 12): one torch.distributed.run launch of four gloo
+# ranks sharing card 0 (``--rank-job SPEC``), at May geometry with the
+# default base-64 U-Net in train-mode BatchNorm, the black-hole
+# augmentation and the K2/K7 gathers on.  The step under each mesh, in
+# float32 and bf16, against the one-process step on the global batch on
+# the same card (rank 0), on the metrics (grad_norm among them), the
+# U-Net's BatchNorm state and two gradients; the halo exchanges' bytes and
+# ms; each rank's K2/K7 launches; MultiSpeakerServer and the tracker's
+# photometric term under (2, 2)
+PIX_B = 2                                     # the global batch
+PIX_MESHES = ((2, 2), (1, 4))                 # (1, 4): 128/124/124/124 rows
+PIX_DTYPES = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
+# the gradients held to the bound: the U-Net's 1x1 outc, weight and bias
+# (sums over every band's rows, through the bands' gather and its
+# reduce-scatter); the lip MLP's first layer (through the whole banded
+# U-Net's backward) is held to the training path's own bound
+# (TRAIN_BOUND, phase 5's).  Logged only: the first 3x3 conv's weight,
+# whose float32 gradient is 1.7e-3 off its float64 value even in one
+# process on the CPU (BatchNorm's backward cancels its sums), and the
+# canonical depth's, the derivative of a bilinear sample with respect to
+# its grid, which jumps where a point crosses a pixel edge: the warp's
+# batched product rounds otherwise at a rank's batch of 1 than at 2
+PIX_GRADS = ("unet.outc.w", "unet.outc.b")
+PIX_TRAIN_GRADS = ("model.trunk.0.w",)
+PIX_LOGGED_GRADS = ("unet.inc.conv1.w", "model.canonical_depth")
+PIX_ITERS = 3
+
+
+def _pixel_tracker(dev, shape) -> float:
+    """The tracker's photometric term and its gradients on a (data,
+    pixel) mesh against the term with no mesh, on this rank: worst
+    relative error.  5 frames of a rendered 48-px world (the CPU test's)
+    padded to 6 over the data axis."""
+    from speech2lip_tpu_torch.parallel import mesh as mesh_mod
+    from speech2lip_tpu_torch.preprocess import face_3dmm as bfm
+    from speech2lip_tpu_torch.preprocess import synthetic_world as sw
+    from speech2lip_tpu_torch.preprocess.tracker import (FaceTracker,
+                                                         TrackerConfig)
+
+    n, size, focal = 5, 48, 60.0
+    assets = bfm.assets_to(bfm.synthetic_assets(
+        n_verts=150, id_dim=6, exp_dim=4, tex_dim=6, seed=1), dev)
+    truth = sw.true_params(assets, n)
+    imgs, lms = sw.render_world(assets, truth, size, focal)
+    cfg = TrackerConfig(img_h=size, img_w=size, photo_chunk=2, id_dim=6,
+                        exp_dim=4, tex_dim=6)
+    plain = FaceTracker(assets, lms, cfg, device=dev)
+    t = lambda k: torch.as_tensor(truth[k], device=dev)
+    with torch.no_grad():
+        pix, colors = plain._pix_colors(
+            t("id"), bfm.forward_tex(assets, torch.zeros(1, 6, device=dev)),
+            t("exp"), t("euler"), t("trans"),
+            torch.zeros(n, 27, device=dev), focal)
+    imgs = torch.as_tensor(imgs, dtype=torch.float32, device=dev)
+    mesh = mesh_mod.make_mesh(shape, device=dev)
+    out = []
+    for tr in (plain, FaceTracker(assets, lms, cfg, mesh=mesh, device=dev)):
+        p, c = (v.clone().requires_grad_(True) for v in (pix, colors))
+        loss = tr.col_loss(p, c, imgs)
+        grads = torch.autograd.grad(loss, [p, c])
+        if tr.mesh is not None:
+            grads = mesh_mod.mean_tensors(grads, mesh, mesh_mod.DATA)
+        out.append([loss.detach(), *grads])
+    return max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-12))
+               for a, b in zip(*out))
+
+
+def _pixel_rank_job(spec) -> int:
+    """One of phase 12's gloo ranks, on card 0: for each of the spec's
+    dtypes, the one-process step on the global batch (rank 0), then each
+    mesh's step on this rank's rows: the metrics, BatchNorm state,
+    gradients and launches of one step, the halo exchanges of a second,
+    the ms of ``iters`` more; then the server and the tracker under the
+    first mesh.  Each rank saves its results where the spec says."""
+    import torch.distributed as dist
+
+    from speech2lip_tpu_torch.parallel import distributed
+    from speech2lip_tpu_torch.parallel import mesh as mesh_mod
+    from speech2lip_tpu_torch.tools import bench_train
+    from speech2lip_tpu_torch.train import train_step as ts
+
+    dev = torch.device(spec["device"], 0 if spec["device"] == "cuda"
+                       else None)
+    dist.init_process_group("gloo", init_method="env://")
+    rank = distributed.process_index()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset, counts = _launch_counters()
+    face, lip_h, lip_w = spec["geometry"]
+    meshes = [tuple(m) for m in spec["meshes"]]
+    batch, geo, win, params, frozen = bench_train.train_inputs(
+        dev, spec["batch"], face, lip_h, lip_w, seed=SEED)
+    swap, halo = mesh_mod._swap_edges, {}
+
+    def timed_swap(top, bottom, band):
+        """The halo exchange, its bytes (the two edge rows this rank
+        sends) and ms counted."""
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = swap(top, bottom, band)
+        _sync(dev)
+        halo["ms"] += 1e3 * (time.perf_counter() - t0)
+        halo["bytes"] += nbytes(top, bottom)
+        halo["calls"] += 1
+        return out
+
+    def run(mesh, st, draws):
+        b, d = mesh_mod.shard_batch(batch, mesh), ts.shard_draws(draws, mesh)
+        reset()
+        grads, m, bn, trainable = ts.loss_and_grads(*params, frozen, b, d,
+                                                    st, mesh)
+        _sync(dev)
+        names = [k for k, _ in named_leaves(trainable)]
+        rec = {"launches": counts(),
+               "metrics": {k: float(v) for k, v in m.items()},
+               "bn": [t.double().cpu() for t in ts.tree_leaves(bn)],
+               "grads": {k: grads[names.index(k)].double().cpu()
+                         for k in PIX_GRADS + PIX_TRAIN_GRADS
+                         + PIX_LOGGED_GRADS}}
+        halo.update(bytes=0, ms=0.0, calls=0)
+        mesh_mod._swap_edges = timed_swap
+        try:
+            ts.loss_and_grads(*params, frozen, b, d, st, mesh)
+            _sync(dev)
+        finally:
+            mesh_mod._swap_edges = swap
+        rec["halo"] = dict(halo)
+        opt = ts.Adam(1e-4)
+        step = ts.make_train_step(opt, st, frozen, mesh)
+        state = ts.init_train_state(*params, opt)
+        rec["ms"] = _wall_ms(lambda: step(state, b, d), dev, spec["iters"])
+        return rec
+
+    res = {"rank": rank, "world": distributed.process_count(), "steps": {}}
+    t0 = time.perf_counter()
+    for name in spec["dtypes"]:
+        st = bench_train.statics(geo, win, face, name)
+        draws = ts.draw_noise(st, spec["batch"], device=dev,
+                              generator=torch.Generator(dev).manual_seed(1))
+        if rank == 0:
+            res["steps"][f"one/{name}"] = run(None, st, draws)
+            # the same step again: what the card's own float atomics
+            # (cuDNN's, K7 dsrc's) move from run to run
+            res["steps"][f"again/{name}"] = run(None, st, draws)
+        for shape in meshes:
+            mesh = mesh_mod.make_mesh(shape, device=dev)
+            rec = run(mesh, st, draws)
+            rec["rows"] = mesh_mod.frame_band(mesh, face).rows
+            res["steps"][f"{shape[0]}x{shape[1]}/{name}"] = rec
+    res["steps_s"] = time.perf_counter() - t0
+    res["server"] = _server_job(dev, _launch_counters(), face, lip_h, lip_w,
+                                shape=meshes[0])
+    res["tracker_err"] = _pixel_tracker(dev, meshes[0])
+    dist.barrier()
+    dist.destroy_process_group()
+    torch.save(res, f"{spec['out']}.{rank}.pt")
+    return 0
+
+
+def _rel_err(got, ref) -> float:
+    got, ref = torch.as_tensor(got), torch.as_tensor(ref)
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-6))
+
+
+def _step_gaps(got, ref) -> dict:
+    """Phase 12's gaps of a step record to a reference: each metric
+    relative to max(1, |value|), the BatchNorm state and each gradient
+    relative to its largest magnitude."""
+    gaps = {k: abs(got["metrics"][k] - v) / max(1.0, abs(v))
+            for k, v in ref["metrics"].items()}
+    gaps["bn"] = max(_rel_err(x, y) for x, y in zip(got["bn"], ref["bn"]))
+    gaps.update({k: _rel_err(got["grads"][k], ref["grads"][k])
+                 for k in ref["grads"]})
+    return {k: float(f"{v:.3g}") for k, v in gaps.items()}
+
+
+def pixel_axis(dev, card: str, tmp: str) -> dict:
+    """Phase 12 in the directory ``tmp``: four gloo ranks on card 0.
+    Returns its numbers."""
+    import os
+
+    from speech2lip_tpu_torch.parallel.distributed import launch
+
+    spec = {"backend": "pixel", "device": dev.type,
+            "geometry": [FACE, LIP_H, LIP_W], "batch": PIX_B,
+            "meshes": PIX_MESHES, "dtypes": [n for n, _ in PIX_DTYPES],
+            "iters": PIX_ITERS, "out": os.path.join(tmp, "pixel")}
+    path = os.path.join(tmp, "pixel.spec.json")
+    json.dump(spec, open(path, "w"))
+    world = PIX_MESHES[0][0] * PIX_MESHES[0][1]
+    t0 = time.perf_counter()
+    launch(world, "chip_smoke", ["--rank-job", path],
+           cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(f"{spec['out']}.{r}.pt", weights_only=False)
+             for r in range(world)]
+    require([r["world"] for r in ranks] == [world] * world,
+            "phase 12: world sizes")
+    out = {"wall_s": wall, "world": world,
+           "steps_s": max(r["steps_s"] for r in ranks), "steps": {}}
+    for name, dtype in PIX_DTYPES:
+        bound = PAR_BOUND if dtype == torch.float32 else TRAIN_BOUND[dtype]
+        ref = ranks[0]["steps"][f"one/{name}"]
+        floor = _step_gaps(ranks[0]["steps"][f"again/{name}"], ref)
+        out["steps"][f"one/{name}"] = {"ms": ref["ms"], "floor": floor}
+        log(f"# phase 12 one process {name}: the step against itself "
+            f"(run to run on the card) {floor}")
+        for shape in PIX_MESHES:
+            key = f"{shape[0]}x{shape[1]}/{name}"
+            recs = [r["steps"][key] for r in ranks]
+            a = recs[0]
+            require(all(r["metrics"] == a["metrics"] and all(
+                torch.equal(x, y) for x, y in zip(r["bn"], a["bn"]))
+                and all(torch.equal(r["grads"][k], a["grads"][k])
+                        for k in a["grads"]) for r in recs),
+                f"phase 12 {key}: the ranks end the step apart")
+            gaps = _step_gaps(a, ref)
+            err = max(v for k, v in gaps.items()
+                      if k not in PIX_TRAIN_GRADS + PIX_LOGGED_GRADS)
+            train_err = max(gaps[k] for k in PIX_TRAIN_GRADS)
+            launches = [(r["launches"]["window_sample"],
+                         r["launches"]["hat_sample_dsrc"],
+                         r["launches"]["hat_sample_dgrid"]) for r in recs]
+            require(err <= bound, f"phase 12 {key}: the mesh step vs the "
+                    f"one-process step {err:.3g} > {bound}: {gaps}")
+            require(train_err <= TRAIN_BOUND[dtype],
+                    f"phase 12 {key}: the {PIX_TRAIN_GRADS} gradients vs "
+                    f"the one-process step {train_err:.3g} > "
+                    f"{TRAIN_BOUND[dtype]}")
+            require(all(x == STEP_LAUNCHES[False] for x in launches),
+                    f"phase 12 {key}: K2/K7 launches a rank {launches}, "
+                    f"{STEP_LAUNCHES[False]} expected")
+            out["steps"][key] = {
+                "err": err, "gaps": gaps, "bound": bound,
+                "rows": a["rows"], "ms": [r["ms"] for r in recs],
+                "launches": launches,
+                "halo_bytes": [r["halo"]["bytes"] for r in recs],
+                "halo_ms": [r["halo"]["ms"] for r in recs],
+                "halo_calls": a["halo"]["calls"]}
+            log(f"# phase 12 {key}: bands {a['rows']}; vs the one-process "
+                f"step on the global batch: metrics, BatchNorm state and "
+                f"the {PIX_GRADS} gradients {err:.3g} (bound {bound}), "
+                f"{PIX_TRAIN_GRADS} {train_err:.3g} (bound "
+                f"{TRAIN_BOUND[dtype]}); by part {gaps}"
+                + f"; ms a step by rank {[round(r['ms'], 2) for r in recs]} "
+                f"(one process {ref['ms']:.2f}); halo {a['halo']['calls']} "
+                f"exchanges a step, bytes a rank sends "
+                f"{out['steps'][key]['halo_bytes']}, ms "
+                f"{[round(r['halo']['ms'], 2) for r in recs]}; K2/dsrc/dgrid "
+                f"launches a rank {launches}; {world} gloo ranks sharing "
+                f"{card}")
+    sv = [r["server"] for r in ranks]
+    require(all(s["equal"] and s["served"] == [r // PIX_MESHES[0][1]]
+                and (s["launches"]["fused_mlp"],
+                     s["launches"]["window_sample"],
+                     s["launches"]["fused_block"]) == (1, 1, 5)
+                for r, s in enumerate(sv)),
+            f"phase 12: the server on a {PIX_MESHES[0]} mesh {sv}")
+    tr = max(r["tracker_err"] for r in ranks)
+    require(tr <= 1e-5, f"phase 12: the tracker's photometric term on a "
+            f"{PIX_MESHES[0]} mesh vs no mesh {tr:.3g}")
+    out.update(server=[s["launches"] for s in sv], tracker_err=tr)
+    log(f"# phase 12: server on {PIX_MESHES[0]} == no mesh, identity by data "
+        f"index, launches a rank {out['server']}; tracker photometric term "
+        f"and gradients vs no mesh {tr:.3g} (bound 1e-5); the job "
+        f"{wall:.1f} s (its steps {out['steps_s']:.1f} s) on {card}")
     return out
 
 
@@ -3022,6 +3302,9 @@ def main() -> int:
         t0 = time.perf_counter()
         par = training_across_processes(dev, card, tmp)
         par["s"] = time.perf_counter() - t0
+    # -- phase 12: the pixel axis, four gloo ranks on the card -------------
+    with tempfile.TemporaryDirectory() as tmp:
+        pix = pixel_axis(dev, card, tmp)
 
     # -- phase 3e: the dot probe's tool at its full shape -----------------
     # kdp.launches counts dot_probe calls that reached the card; an int8
@@ -3553,6 +3836,11 @@ def main() -> int:
         f"rank; distributed fit launches a rank over {par['fit_launches_its']}"
         f" iterations {par['fit_ranks']}; sharded server launches "
         f"{par['mesh_server']} on {card}")
+    log(f"# the pixel axis (phase 12) {pix['wall_s']:.1f} s, {pix['world']} "
+        f"gloo ranks sharing the card: " + "; ".join(
+            f"{k} err {v['err']:.3g} ms {[round(x, 1) for x in v['ms']]}"
+            if "err" in v else f"{k} ms {v['ms']:.1f}"
+            for k, v in pix["steps"].items()) + f" on {card}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,13 +6,14 @@ of ``speech2lip_tpu/core/config.py``), without yaml.
 parent path is taken from the child's directory, parents load first, the
 child deep-merges on top, and a chain deeper than 8 raises.
 
-The port reads the YAML subset that the committed configs use, and nothing
-else (``parse_yaml``): block mappings nested by spaces, plain scalars (int,
-float, bool, null, string, resolved as ``yaml.safe_load`` resolves them)
-and ``#`` comments.  Anything outside the subset (sequences, flow
-collections, quotes, anchors, aliases, tags, block scalars, documents)
-raises with its line number.  ``dump_yaml`` writes a config in the same
-subset.
+The port reads the YAML subset that the configs use, and nothing else
+(``parse_yaml``): block mappings nested by spaces, plain scalars (int,
+float, bool, null, string, resolved as ``yaml.safe_load`` resolves them),
+one-line flow sequences of plain scalars (``mesh_shape: [2, 2]``,
+``skips: [4]``) and ``#`` comments.  Anything outside the subset (block
+sequences, nested or multi-line flow collections, flow mappings, quotes,
+anchors, aliases, tags, block scalars, documents) raises with its line
+number.  ``dump_yaml`` writes a config in the same subset.
 """
 
 from __future__ import annotations
@@ -81,7 +82,7 @@ DEFAULT_CONFIG: Dict[str, Any] = {
         "batch_rays": 9600,
         "print_every": 10,
         "checkpoint_every": 5000,
-        # per-process shards (not ported: ROADMAP A4)
+        # per-process shards (core/checkpoint_sharded)
         "sharded_ckpt": False,
         "visualize_every": 10000,
         "validate_every": -1,
@@ -199,7 +200,8 @@ class YamlSubsetError(ValueError):
 
 def _fail(where: str, lineno: int, why: str):
     raise YamlSubsetError(f"{where}:{lineno}: {why} (outside the YAML "
-                          f"subset of block mappings and plain scalars)")
+                          f"subset of block mappings, plain scalars and "
+                          f"flow sequences of them)")
 
 
 def _scalar(text: str, where: str, lineno: int) -> Any:
@@ -220,6 +222,23 @@ def _scalar(text: str, where: str, lineno: int) -> Any:
     if ": " in text or text.endswith(":") or " #" in text or "\t" in text:
         _fail(where, lineno, f"scalar {text!r}")
     return text
+
+
+def _flow_sequence(text: str, where: str, lineno: int) -> List[Any]:
+    """``[a, b, ...]`` on one line: its items, each a plain scalar."""
+    if not text.endswith("]"):
+        _fail(where, lineno, f"flow sequence {text!r} does not close on "
+                             f"its line")
+    body = text[1:-1].strip()
+    if not body:
+        return []
+    items = []
+    for item in body.split(","):
+        item = item.strip()
+        if not item or any(c in item for c in "[]{}"):
+            _fail(where, lineno, f"flow sequence item {item!r}")
+        items.append(_scalar(item, where, lineno))
+    return items
 
 
 def _strip_comment(line: str) -> str:
@@ -269,7 +288,9 @@ def parse_yaml(text: str, where: str = "<config>") -> Optional[Dict[str, Any]]:
                 _fail(where, lineno, f"duplicate key {key!r}")
             value = rest.strip()
             pos += 1
-            if value:
+            if value.startswith("["):
+                out[key] = _flow_sequence(value, where, lineno)
+            elif value:
                 out[key] = _scalar(value, where, lineno)
             elif pos < len(lines) and lines[pos][1] > indent:
                 out[key] = block(lines[pos][1])
@@ -305,12 +326,25 @@ def _dump_scalar(value: Any, key: str) -> str:
     return text
 
 
+def _dump_value(value: Any, key: str) -> str:
+    """A plain scalar, or a list of them as a flow sequence, that
+    ``parse_yaml`` reads back as ``value``."""
+    if not isinstance(value, (list, tuple)):
+        return _dump_scalar(value, key)
+    items = [_dump_scalar(v, key) for v in value]
+    if any(c in t for t in items for c in ",[]{}"):
+        raise YamlSubsetError(f"{key}: {value!r} cannot be written as a "
+                              f"flow sequence of plain scalars")
+    return "[" + ", ".join(items) + "]"
+
+
 def dump_yaml(cfg: Dict[str, Any], base: Optional[Dict[str, Any]] = None,
               indent: int = 0) -> str:
     """``cfg`` as text in the YAML subset.  With ``base`` (for example
     ``DEFAULT_CONFIG``) only the entries that differ from it are written,
-    so ``load_config`` of the text gives ``cfg`` back; lists can only be
-    written where they equal ``base``."""
+    so ``load_config`` of the text gives ``cfg`` back; a list is written
+    as a flow sequence of plain scalars, and a tuple reads back as a
+    list."""
     out = []
     for key, value in cfg.items():
         ref = base.get(key) if isinstance(base, dict) else None
@@ -325,7 +359,7 @@ def dump_yaml(cfg: Dict[str, Any], base: Optional[Dict[str, Any]] = None,
             if body:
                 out.append(" " * indent + f"{key}:\n{body.rstrip()}")
             continue
-        out.append(" " * indent + f"{key}: {_dump_scalar(value, key)}")
+        out.append(" " * indent + f"{key}: {_dump_value(value, key)}")
     return "".join(line + "\n" for line in out)
 
 

@@ -16,8 +16,8 @@ import torch
 
 from speech2lip_tpu_torch.infer.renderer import (cast_tree, render_face_batch,
                                                  resolve_device)
-from speech2lip_tpu_torch.parallel.mesh import (all_gather_rows, data_size,
-                                                local_rows)
+from speech2lip_tpu_torch.parallel.mesh import (DATA, all_gather_rows,
+                                                data_size, local_rows)
 
 # the batch entries the renderers read
 RENDER_KEYS = ("audio", "index", "rgb_face_zero", "rgb_face_ori",
@@ -86,13 +86,14 @@ class MultiSpeakerServer:
     the JAX server's switch.
 
     ``mesh`` (``parallel.mesh.make_mesh``): the identities of each offset
-    group split over the ranks of its data axis, as the JAX server shards
-    a group's stacked parameters over ``data``: rank r serves the r-th
-    contiguous block of the group on its own device, through the same
-    path, and ``render_all`` gathers every identity's frames to every
-    rank.  A group of one identity is served by every rank, as the JAX
-    server replicates it; other group sizes must be multiples of the
-    axis.
+    group split over the mesh's data axis, as the JAX server shards a
+    group's stacked parameters over ``data``: the ranks of data index d
+    serve the d-th contiguous block of the group on their own devices
+    (replicated over ``pixel``), through the same path, and
+    ``render_all`` gathers every identity's frames over the data axis to
+    every rank.  A group of one identity is served by every rank, as the
+    JAX server replicates it; other group sizes must be multiples of the
+    data axis.
 
     Runs on the card unless ``device`` names another.  On a CUDA device it
     runs the kernels, and ``use_kernels=False`` raises: the card serves no
@@ -197,7 +198,7 @@ class MultiSpeakerServer:
                     out[i] = o
                 continue
             every = {key: all_gather_rows(
-                torch.stack([o[key] for o in rendered]), self.mesh)
+                torch.stack([o[key] for o in rendered]), self.mesh, DATA)
                 for key in rendered[0]}
             for k, i in enumerate(ids):
                 out[i] = {key: v[k] for key, v in every.items()}

@@ -24,17 +24,17 @@ from speech2lip_tpu_torch.ops.kernels.conv_hcw import (conv3x3_hcw,
 from speech2lip_tpu_torch.ops.kernels.fused_block import fused_block
 
 
-def _bn(params, state, x, train: bool):
+def _bn(params, state, x, train: bool, band=None):
     if train:
-        return tnn.batchnorm_train(params, state, x)
+        return tnn.batchnorm_train(params, state, x, band=band)
     return tnn.batchnorm(params, state, x), state
 
 
-def _double_conv(params, state, x, train: bool = False):
-    x = tnn.conv2d(params["conv1"], x, padding=1)
-    x, s1 = _bn(params["bn1"], state["bn1"], x, train)
-    x = tnn.conv2d(params["conv2"], tnn.relu(x), padding=1)
-    x, s2 = _bn(params["bn2"], state["bn2"], x, train)
+def _double_conv(params, state, x, train: bool = False, band=None):
+    x = tnn.conv2d(params["conv1"], x, padding=1, band=band)
+    x, s1 = _bn(params["bn1"], state["bn1"], x, train, band)
+    x = tnn.conv2d(params["conv2"], tnn.relu(x), padding=1, band=band)
+    x, s2 = _bn(params["bn2"], state["bn2"], x, train, band)
     return tnn.relu(x), {"bn1": s1, "bn2": s2}
 
 
@@ -53,25 +53,45 @@ def _up2x(x, out_h: int, out_w: int):
     return cols[:, :out_h, :out_w]
 
 
-def apply(params, state, x, train: bool = False, exact2x: bool = False):
+def apply(params, state, x, train: bool = False, exact2x: bool = False,
+          band=None):
     """Plain forward: x [B, H, W, C] -> (logits [B, H, W, n_classes],
     new BN state).  ``train`` normalises with batch statistics and returns
     the updated running statistics; otherwise the state comes back as it
     went in.  ``exact2x`` upsamples with ``_up2x`` instead of align-corners
-    bilinear."""
-    up = _up2x if exact2x else tnn.upsample_bilinear
+    bilinear.
+
+    ``band`` (``parallel.mesh.Band``, from ``frame_band``): x is this
+    rank's band of the frames' rows and so is the output.  The 3x3 convs
+    and the upsamples read one halo row of each neighbouring band, the
+    train-mode statistics are the whole mesh's, and the pools, skips,
+    concats and the 1x1 ``outc`` keep to the band's rows, whose edges lie
+    on whole pool cells."""
+    if band is not None and exact2x:
+        raise ValueError("a band upsamples align-corners; exact2x is the "
+                         "static scene's whole-frame path")
+    b1 = band
+    b2 = None if band is None else band.half()
+    b3 = None if band is None else b2.half()
+
+    def up(v, like, b):
+        if exact2x:
+            return _up2x(v, like.shape[1], like.shape[2])
+        out_h = like.shape[1] if b is None else 2 * b.height
+        return tnn.upsample_bilinear(v, out_h, like.shape[2], band=b)
+
     new = {}
-    x1, new["inc"] = _double_conv(params["inc"], state["inc"], x, train)
+    x1, new["inc"] = _double_conv(params["inc"], state["inc"], x, train, b1)
     x2, new["down1"] = _double_conv(params["down1"], state["down1"],
-                                    tnn.maxpool2d(x1), train)
+                                    tnn.maxpool2d(x1), train, b2)
     x3, new["down2"] = _double_conv(params["down2"], state["down2"],
-                                    tnn.maxpool2d(x2), train)
-    u = up(x3, x2.shape[1], x2.shape[2])
+                                    tnn.maxpool2d(x2), train, b3)
+    u = up(x3, x2, b3)
     u, new["up1"] = _double_conv(params["up1"], state["up1"],
-                                 torch.cat([x2, u], dim=-1), train)
-    u = up(u, x1.shape[1], x1.shape[2])
+                                 torch.cat([x2, u], dim=-1), train, b2)
+    u = up(u, x1, b2)
     u, new["up2"] = _double_conv(params["up2"], state["up2"],
-                                 torch.cat([x1, u], dim=-1), train)
+                                 torch.cat([x1, u], dim=-1), train, b1)
     return tnn.conv2d(params["outc"], u, padding=0), new
 
 

@@ -31,11 +31,23 @@ def _same_padding(n: int, k: int, s: int, d: int):
     return total // 2, total - total // 2
 
 
-def conv2d(params, x, stride=1, padding=1, dilation=1):
+def conv2d(params, x, stride=1, padding=1, dilation=1, band=None):
     """x: [B, H, W, C]; kernel HWIO; ``stride`` and ``dilation`` an int or
     (sh, sw).  ``padding``: symmetric zero padding as an int or (ph, pw),
     per side as ((top, bottom), (left, right)), or ``"SAME"`` as XLA pads
-    it (uneven where a stride needs it)."""
+    it (uneven where a stride needs it).
+
+    ``band`` (``parallel.mesh.Band``): x is this rank's band of the
+    frame's rows, and a 3x3 conv with padding 1 reads one row of each
+    neighbouring band (``parallel.mesh.halo_rows``): zero rows stand at
+    the frame's top and bottom only."""
+    if band is not None:
+        from speech2lip_tpu_torch.parallel.mesh import halo_rows
+        if (params["w"].shape[:2] != (3, 3) or padding != 1 or stride != 1
+                or dilation != 1):
+            raise ValueError("a band runs 3x3 convs of stride 1 and "
+                             "padding 1 only")
+        x, padding = halo_rows(x, band), ((0, 0), (1, 1))
     w = params["w"].permute(3, 2, 0, 1)
     st = (stride, stride) if isinstance(stride, int) else tuple(stride)
     dl = (dilation, dilation) if isinstance(dilation, int) else tuple(dilation)
@@ -71,40 +83,45 @@ def batchnorm(params, state, x, eps: float = 1e-5):
     return (x - state["mean"]) * inv + params["bias"]
 
 
-def _global_moments(x, dims, mesh):
-    """(mean, biased variance, count) of ``x`` over ``dims`` and over the
-    mesh's ranks, each holding as many rows: an all-reduced sum over the
-    global count, then an all-reduced sum of squared deviations (two
-    passes: E[x^2] - mean^2 cancels in float32).  Sums in float32, both
-    differentiable."""
+def _global_moments(x, dims, mesh, axis, n):
+    """(mean, biased variance) of ``x`` over ``dims`` and over the ranks
+    of ``axis``, whose rows number ``n`` in all: an all-reduced sum over
+    n, then an all-reduced sum of squared deviations (two passes: E[x^2] -
+    mean^2 cancels in float32).  Sums in float32, both differentiable."""
     from speech2lip_tpu_torch.parallel.mesh import all_sum
-    n = (x.numel() // x.shape[-1]) * mesh.data
     xf = x.float()
-    mean = all_sum(xf.sum(dims), mesh) / n
-    var = all_sum(((xf - mean) ** 2).sum(dims), mesh) / n
-    return mean.to(x.dtype), var.to(x.dtype), n
+    mean = all_sum(xf.sum(dims), mesh, axis) / n
+    var = all_sum(((xf - mean) ** 2).sum(dims), mesh, axis) / n
+    return mean.to(x.dtype), var.to(x.dtype)
 
 
 def batchnorm_train(params, state, x, momentum: float = 0.1,
-                    eps: float = 1e-5):
+                    eps: float = 1e-5, band=None):
     """Train-mode BatchNorm over the last axis, as torch's BatchNorm2d:
     normalises with the batch's biased variance and updates the running
     variance with the unbiased one.  Returns (y, new_state); the new state
     carries no gradient.
 
-    Inside a ``parallel.mesh.data_axis`` block of more than one rank the
-    batch is the global one, as under the JAX package's SPMD mesh: the
-    statistics and the unbiased correction's count are taken over every
-    rank's rows, so every rank keeps the same running state."""
-    from speech2lip_tpu_torch.parallel.mesh import active
+    Inside a ``parallel.mesh.on_mesh`` block the batch is the global one,
+    as under the JAX package's SPMD mesh: the statistics and the unbiased
+    correction's count are taken over the rows of every data index, so
+    every rank keeps the same running state.  With ``band`` (x [B, h, W,
+    C] is this rank's band of a frame's rows) they are taken over every
+    rank's band, on both axes, and the count sums the bands' rows."""
+    from speech2lip_tpu_torch.parallel.mesh import (ALL, DATA, active,
+                                                    axis_size)
     dims = tuple(range(x.dim() - 1))
+    n = x.numel() // x.shape[-1]
     mesh = active()
-    if mesh is None:
+    if band is not None:
+        n = n // x.shape[1] * band.height * band.mesh.data
+        mean, var = _global_moments(x, dims, band.mesh, ALL, n)
+    elif axis_size(mesh, DATA) > 1:
+        n *= mesh.data
+        mean, var = _global_moments(x, dims, mesh, DATA, n)
+    else:
         mean = x.mean(dims)
         var = x.var(dims, correction=0)
-        n = x.numel() // x.shape[-1]
-    else:
-        mean, var, n = _global_moments(x, dims, mesh)
     with torch.no_grad():
         unbiased = var * n / max(n - 1, 1)
         new_state = {
@@ -135,14 +152,42 @@ def _align_corners_matrix(out_size: int, in_size: int, dtype, device=None):
     return m.to(dtype)
 
 
-def upsample_bilinear(x, out_h: int, out_w: int):
+def upsample_bilinear(x, out_h: int, out_w: int, band=None):
     """NHWC bilinear resize, align_corners=True, as two interpolation
-    matmuls in x's dtype (the JAX package's formulation)."""
+    matmuls in x's dtype (the JAX package's formulation).
+
+    ``band`` (``parallel.mesh.Band``): x is this rank's band of the
+    frame's rows, the output is its band of twice the rows, and output
+    row i reads the input through the frame's mapping i (h - 1) / (H - 1):
+    at H = 2h that reaches one row past each band edge and no further
+    (checked), so one halo row each side (``parallel.mesh.halo_rows``)
+    carries it."""
     _, h, w, _ = x.shape
-    mh = _align_corners_matrix(out_h, h, x.dtype, x.device)
     mw = _align_corners_matrix(out_w, w, x.dtype, x.device)
+    if band is None:
+        mh = _align_corners_matrix(out_h, h, x.dtype, x.device)
+    else:
+        from speech2lip_tpu_torch.parallel.mesh import halo_rows
+        mh = _band_matrix(out_h, band.height, band.start, band.stop).to(
+            x.device, x.dtype)
+        x = halo_rows(x, band)
     y = torch.einsum("oh,bhwc->bowc", mh, x)
     return torch.einsum("pw,bowc->bopc", mw, y)
+
+
+def _band_matrix(out_h: int, in_h: int, start: int, stop: int):
+    """Rows [2 start, 2 stop) of the frame's align-corners matrix [out_h,
+    in_h], over the input rows [start - 1, stop] (a zero column where that
+    leaves the frame); float32.  Raises where a row reads further."""
+    if out_h != 2 * in_h:
+        raise ValueError(f"a band upsamples by 2 exactly, not {in_h} -> "
+                         f"{out_h} rows")
+    full = F.pad(_align_corners_matrix(out_h, in_h, torch.float32),
+                 (1, 1))[2 * start:2 * stop]
+    if bool(full[:, :start].any() or full[:, stop + 2:].any()):
+        raise ValueError(f"output rows [{2 * start}, {2 * stop}) read input "
+                         f"rows beyond one halo row of [{start}, {stop})")
+    return full[:, start:stop + 2]
 
 
 def _resize_matrix(in_size: int, out_size: int, dtype, device=None):

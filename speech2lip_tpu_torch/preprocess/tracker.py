@@ -16,7 +16,7 @@ as there, restarted at step 0 by every loop.  A step's work stays on the
 device: the loop reads nothing back.  The photometric term is a mean of
 per-frame terms, computed ``photo_chunk`` frames at a time under
 activation checkpointing; under a ``parallel.mesh`` mesh its frames split
-over the ranks.
+over the data axis.
 """
 
 from __future__ import annotations
@@ -95,7 +95,7 @@ def adam_loop(loss_fn: Callable, params: Dict[str, torch.Tensor],
         if mesh is not None:
             got = mesh_mod.mean_tensors(
                 [torch.zeros_like(p[k]) if g is None else g
-                 for k, g in zip(keys, got)], mesh)
+                 for k, g in zip(keys, got)], mesh, mesh_mod.DATA)
         grads = dict(zip(keys, got))
         with torch.no_grad():
             for g, ks in groups.items():
@@ -140,10 +140,11 @@ class FaceTracker:
         ``device`` (the assets' device unless named).
 
         ``mesh``: a ``parallel.mesh`` mesh whose data axis splits the
-        photometric phases' frames over the ranks, as the JAX tracker
-        shards them over its mesh (phases c and d; the landmark phases
-        are cheap and run whole on every rank); None runs on one
-        device."""
+        photometric phases' frames over its data indices, as the JAX
+        tracker's ``shard_map`` over ``data`` shards them (phases c and d;
+        the pixel ranks of a data index take the same frames, and the
+        landmark phases are cheap and run whole on every rank); None, or
+        a data axis of one, runs on one device."""
         dev = torch.device(device) if device is not None else \
             assets.tris.device
         self.mesh = mesh if mesh_mod.data_size(mesh) > 1 else None
@@ -220,14 +221,22 @@ class FaceTracker:
         term's."""
         if self.mesh is None:
             return self._chunked_terms(pix, colors, imgs).mean()
-        w, b = self.mesh.data, pix.shape[0]
-        per = -(-b // w)
-        idx = torch.arange(self.mesh.rank * per,
-                           (self.mesh.rank + 1) * per, device=pix.device)
-        weight = (idx < b).to(pix.dtype)
-        idx = torch.where(idx < b, idx, (idx - b) % b)
+        b = pix.shape[0]
+        idx, weight = self.frame_block(b, pix.device)
         terms = self._chunked_terms(pix[idx], colors[idx], imgs[idx])
-        return mesh_mod.all_sum((terms * weight).sum(), self.mesh) / b
+        return mesh_mod.all_sum((terms * weight).sum(), self.mesh,
+                                mesh_mod.DATA) / b
+
+    def frame_block(self, b: int, device=None):
+        """(indices, weights) of this rank's frames of ``b`` under the
+        mesh: its data index's block of the frames padded to a multiple of
+        the data axis, the padding repeats of weight 0; the pixel ranks of
+        a data index take the same block."""
+        w, d = self.mesh.data, self.mesh.data_index
+        per = -(-b // w)
+        idx = torch.arange(d * per, (d + 1) * per, device=device)
+        weight = (idx < b).float()
+        return torch.where(idx < b, idx, (idx - b) % b), weight
 
     def _pix_colors(self, id_para, texv, exp, euler, trans, light,
                     focal: float):

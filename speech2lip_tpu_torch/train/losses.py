@@ -18,22 +18,25 @@ def photometric_loss(pred, target, mask: Optional[torch.Tensor] = None,
                      weight: float = 1.0):
     """(Masked) MSE.
 
-    Inside a ``parallel.mesh.data_axis`` block of W > 1 ranks the masked
-    loss is the JAX step's ratio over the global batch, sum(err) /
-    (sum(mask) + 1e-6) with both sums over every rank, on the rank-mean
-    scale: each rank returns W * its own numerator over the global
-    denominator (summed with no gradient; the mask is data), so the mean
-    of the ranks' values, and of their gradients, is the global ratio's.
-    The plain mean needs nothing: over equal per-rank batches the mean of
-    the ranks' means is the global mean.  The other terms of the step
-    (LPIPS, the sync loss's BCE) are such means too."""
+    Inside a ``parallel.mesh.on_mesh`` block of D > 1 data indices the
+    masked loss is the JAX step's ratio over the global batch, sum(err) /
+    (sum(mask) + 1e-6) with both sums over the data axis, on the
+    rank-mean scale: each rank returns D * its own numerator over the
+    global denominator (summed with no gradient; the mask is data), so
+    the mean of the ranks' values, and of their gradients, is the global
+    ratio's.  The pixel ranks of a data index compute the term whole and
+    alike, so the sum leaves them out.  The plain mean needs nothing:
+    over equal per-rank batches the mean of the ranks' means is the
+    global mean.  The other terms of the step (LPIPS, the sync loss's
+    BCE) are such means too."""
     if mask is not None:
-        from speech2lip_tpu_torch.parallel.mesh import active, sum_no_grad
+        from speech2lip_tpu_torch.parallel.mesh import (DATA, active,
+                                                        sum_no_grad)
         err = (pred - target) ** 2 * mask
         mesh = active()
         if mesh is None:
             return weight * err.sum() / (mask.sum() + 1e-6)
-        den = sum_no_grad(mask.sum(), mesh)
+        den = sum_no_grad(mask.sum(), mesh, DATA)
         return weight * mesh.data * err.sum() / (den + 1e-6)
     return weight * ((pred - target) ** 2).mean()
 

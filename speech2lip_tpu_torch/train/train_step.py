@@ -162,10 +162,11 @@ def draw_noise(st: StepStatics, batch_size: int, device=None,
     normal [B, face_h, face_w, 1] and ``apply_u`` a uniform scalar for the
     black-hole augmentation.
 
-    Under a ``mesh`` of W ranks ``batch_size`` is the rank's: every rank
-    draws the global batch's noise (B*W frames) from its generator, seeded
-    alike on every rank, and keeps its own rows, so the union of a step's
-    draws over the ranks is a one-process step's on the global batch."""
+    Under a ``mesh`` of D data indices ``batch_size`` is the rank's:
+    every rank draws the global batch's noise (B*D frames) from its
+    generator, seeded alike on every rank, and keeps its data index's
+    rows, so the union of a step's draws over the data axis is a
+    one-process step's on the global batch."""
     w = mesh_mod.data_size(mesh)
     if w > 1:
         return shard_draws(draw_noise(st, batch_size * w, device, generator),
@@ -249,7 +250,13 @@ def _unet_dtype(unet_params):
 def _fuse_frame(params, unet_params, unet_state, rgb_lip, batch, coord,
                 draws, st: StepStatics, blackaug: bool):
     """Post-fusion composite + U-Net for a batch of frames.  Returns (face,
-    new U-Net BN state)."""
+    new U-Net BN state).
+
+    Under a mesh with a pixel axis (``parallel.mesh.on_mesh``), as the
+    JAX step's ``pixel_sharded`` constraint partitions it, each pixel rank
+    composites the whole frames, runs the U-Net on its band of their rows
+    and gathers the bands into whole faces; the gather's backward sums
+    the pixel ranks' cotangents (``parallel.mesh.gather_bands``)."""
     noise = None
     static_warp = None
     if blackaug:
@@ -265,8 +272,15 @@ def _fuse_frame(params, unet_params, unet_state, rgb_lip, batch, coord,
         window=st.window, static_warp=static_warp, **_gather_kw(st))
     # the float32 noise, grid and box mask promote the blend: realign it
     unet_in = unet_in.to(_unet_dtype(unet_params))
-    return unet_light.apply(unet_params, unet_state, unet_in,
-                            train=not st.postnet_frozen)
+    mesh = mesh_mod.active()
+    if mesh_mod.axis_size(mesh, mesh_mod.PIXEL) <= 1:
+        return unet_light.apply(unet_params, unet_state, unet_in,
+                                train=not st.postnet_frozen)
+    band = mesh_mod.frame_band(mesh, unet_in.shape[1])
+    face, new_state = unet_light.apply(
+        unet_params, unet_state, unet_in[:, band.start:band.stop],
+        train=not st.postnet_frozen, band=band)
+    return mesh_mod.gather_bands(face, band), new_state
 
 
 def _depth_loss(params, frozen, batch, st: StepStatics):
@@ -514,12 +528,14 @@ def init_train_state(params, unet_params, unet_state,
 def reduce_metrics(metrics: Dict[str, torch.Tensor], mesh
                    ) -> Dict[str, torch.Tensor]:
     """The ranks' metrics as the global batch's: each the mean over the
-    ranks (one all-reduce), and ``psnr`` taken again from the global
-    ``loss_rgb``.  Unchanged at one rank."""
+    data axis (one all-reduce; the pixel ranks of a data index hold the
+    same values), and ``psnr`` taken again from the global ``loss_rgb``.
+    Unchanged at one data index."""
     if mesh_mod.data_size(mesh) <= 1:
         return metrics
     metrics = mesh_mod.mean_dict(
-        {k: v for k, v in metrics.items() if k != "psnr"}, mesh)
+        {k: v for k, v in metrics.items() if k != "psnr"}, mesh,
+        mesh_mod.DATA)
     metrics["psnr"] = losses.psnr_from_mse(metrics["loss_rgb"])
     return metrics
 
@@ -531,18 +547,21 @@ def loss_and_grads(params, unet_params, unet_state, frozen, batch, draws,
     for the U-Net when ``postnet_frozen``).  Returns (grads, metrics with
     ``grad_norm``, new U-Net BN state, the trainable tree).
 
-    Under a ``mesh`` of W > 1 ranks ``batch`` and ``draws`` are the rank's
-    rows of the global batch: the losses run inside
-    ``parallel.mesh.data_axis`` (global BatchNorm statistics and masked
-    sums), the gradients are averaged over the ranks through one
-    all-reduce of one flat buffer before ``grad_norm``, and the metrics
-    are the global batch's.  Float32 work runs without TF32
-    (``ops.nn.full_float32``), as on the CPU."""
+    Under a ``mesh`` of more than one rank ``batch`` and ``draws`` are
+    the rank's data index's rows of the global batch: the losses run
+    inside ``parallel.mesh.on_mesh`` (global BatchNorm statistics and
+    masked sums, the U-Net on a band of rows per pixel rank), the
+    gradients are averaged over all the mesh's ranks through one
+    all-reduce of one flat buffer before ``grad_norm`` (a pixel rank's
+    gradient holds the whole of the replicated terms and its band's share
+    of the U-Net's, times the pixel axis, so the mean over both axes is
+    the global batch's), and the metrics are the global batch's.  Float32
+    work runs without TF32 (``ops.nn.full_float32``), as on the CPU."""
     trainable = {
         "model": tree_map(lambda t: t.detach().requires_grad_(True), params),
         "unet": tree_map(lambda t: t.detach().requires_grad_(
             not st.postnet_frozen), unet_params)}
-    with full_float32(), mesh_mod.data_axis(mesh):
+    with full_float32(), mesh_mod.on_mesh(mesh):
         total, (metrics, new_unet_state) = compute_losses(
             trainable["model"], trainable["unet"], unet_state, frozen,
             batch, draws, st)
@@ -552,7 +571,7 @@ def loss_and_grads(params, unet_params, unet_state, frozen, batch, draws,
     grads = [next(got) if t.requires_grad else None for t in leaves]
     grads = [torch.zeros_like(t) if g is None else g
              for g, t in zip(grads, leaves)]
-    grads = mesh_mod.mean_tensors(grads, mesh)
+    grads = mesh_mod.mean_tensors(grads, mesh, mesh_mod.ALL)
     metrics = reduce_metrics({k: v.detach() for k, v in metrics.items()},
                              mesh)
     metrics["grad_norm"] = torch.nn.utils.get_total_norm(grads)
@@ -613,7 +632,8 @@ def make_chunked_train_step(optimizer: Adam, st: StepStatics, n_chunks: int,
     the other loss flags), in float32; the U-Net and its state pass
     through unchanged.  Metrics: ``loss`` = ``loss_rgb``, the mean of the
     chunk losses, and ``psnr``.  Under a ``mesh`` each chunk's gradients
-    are averaged over the ranks (the chunk loss is a plain mean) and the
+    are averaged over the data axis (the chunk loss is a plain mean, and
+    the pixel ranks, which run no U-Net here, compute it alike) and the
     metrics are the global batch's."""
     n = st.lip_h * st.lip_w
     if n % n_chunks:
@@ -654,13 +674,13 @@ def make_chunked_train_step(optimizer: Adam, st: StepStatics, n_chunks: int,
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             grads = [torch.zeros_like(t) if g is None else g
                      for g, t in zip(grads, leaves)]
-            grads = mesh_mod.mean_tensors(grads, mesh)
+            grads = mesh_mod.mean_tensors(grads, mesh, mesh_mod.DATA)
             updates, opt_state = optimizer.update(grads, opt_state)
             params = tree_unflatten(p, [(t + u).detach()
                                         for t, u in zip(leaves, updates)])
             chunk_losses.append(loss.detach())
         loss_rgb = torch.stack(chunk_losses).mean()
-        (loss_rgb,) = mesh_mod.mean_tensors([loss_rgb], mesh)
+        (loss_rgb,) = mesh_mod.mean_tensors([loss_rgb], mesh, mesh_mod.DATA)
         metrics = {"loss": loss_rgb, "loss_rgb": loss_rgb,
                    "psnr": losses.psnr_from_mse(loss_rgb)}
         return TrainState(params, state.unet_params, state.unet_state,

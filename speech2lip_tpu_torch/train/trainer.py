@@ -10,9 +10,10 @@ It trains on the card unless the caller names another device; the step's
 random draws come from a ``torch.Generator`` seeded from
 ``training.seed``, and each batch goes to the device once per iteration.
 Started as N ranks (``python -m torch.distributed.run --nproc_per_node
-N``), it trains on the ``parallel.mesh`` data axis as the JAX loop trains
-on its mesh: each rank reads its slice of every epoch, and the step is
-the JAX mesh step's on the global batch.
+N``), it trains on the ``parallel.mesh`` ``(data, pixel)`` mesh as the
+JAX loop trains on its mesh: each data index reads its slice of every
+epoch, its pixel ranks split the U-Net's rows, and the step is the JAX
+mesh step's on the global batch.
 The depth-loss helpers compute the canonical-depth loss's support with
 numpy from the identity's canonical masks.
 """
@@ -396,9 +397,11 @@ def fit(cfg: Dict[str, Any], max_iters: Optional[int] = None,
     loss read that waits for the device).
 
     Under a process group of N ranks (``parallel.distributed``) the mesh
-    is ``parallel.mesh_shape`` (default ``[N, 1]``), each rank trains on
-    ``training.batch_size`` frames of a global batch of ``batch_size *
-    N``, and every rank ends each step with the same state.  Rank 0
+    is ``parallel.mesh_shape`` ``[D, P]`` (default ``[N, 1]``; D * P =
+    N): each data index trains on ``training.batch_size`` frames of a
+    global batch of ``batch_size * D``, its P pixel ranks share them and
+    split the U-Net's rows, and every rank ends each step with the same
+    state.  Rank 0
     writes the log, ``metrics.jsonl``, the images and the dense
     checkpoints; with ``training.sharded_ckpt`` every rank takes part in
     each save.  Validation runs on every rank, so that the best-metric
@@ -453,7 +456,8 @@ def fit(cfg: Dict[str, Any], max_iters: Optional[int] = None,
 
     t0 = time.time()
     t0b = time.time()
-    n_proc, proc_id = mesh.data, mesh.rank
+    # the data axis splits the epoch; the pixel ranks of an index share it
+    n_proc, proc_id = mesh.data, mesh.data_index
     batch_size = int(tr["batch_size"])
     # the smallest rank's slice: every rank takes as many frames a step
     host_frames = len(ds) // n_proc
@@ -467,8 +471,10 @@ def fit(cfg: Dict[str, Any], max_iters: Optional[int] = None,
                        "rank; clamping to %d", batch_size, host_frames,
                        host_frames)
         batch_size = host_frames
-    logger.info("mesh data=%d rank=%d device=%s; global batch %d; loader %s",
-                n_proc, proc_id, device, batch_size * n_proc,
+    logger.info("mesh data=%d rank=%d pixel=%d data_index=%d "
+                "pixel_index=%d device=%s; global batch %d; loader %s",
+                mesh.data, mesh.rank, mesh.pixel, mesh.data_index,
+                mesh.pixel_index, device, batch_size * n_proc,
                 prefetch_backend(ds) or "python")
 
     def save_tree():
@@ -477,10 +483,10 @@ def fit(cfg: Dict[str, Any], max_iters: Optional[int] = None,
     def time_is_up() -> bool:
         """The time limit, decided alike on every rank (rank 0's clock)."""
         up = time.time() - t0 >= exit_after
-        if n_proc == 1:
+        if mesh.world == 1:
             return up
         flag = torch.tensor(float(main and up), device=device)
-        return bool(mesh_mod.sum_no_grad(flag, mesh) > 0)
+        return bool(mesh_mod.sum_no_grad(flag, mesh, mesh_mod.ALL) > 0)
 
     while True:
         epoch_it += 1

@@ -1,8 +1,10 @@
 """The port's yaml-free config reader (speech2lip_tpu_torch.config) against
 the JAX package's ``load_config`` (yaml.safe_load) on the CPU: every
-committed config loads to the same tree, the default trees are equal, YAML
-outside the subset raises with its line number, and a config the port
-writes loads back to itself in both readers.
+committed config loads to the same tree, the default trees are equal, the
+subset's scalars and flow sequences resolve as ``yaml.safe_load``
+resolves them, YAML outside the subset raises with its line number, and a
+config the port writes (a ``[2, 2]`` mesh and other lists included) loads
+back to itself in both readers.
 """
 
 from pathlib import Path
@@ -48,8 +50,19 @@ def test_subset_scalars_resolve_as_safe_load(text):
     assert tconfig.parse_yaml(text) == yaml.safe_load(text)
 
 
+@pytest.mark.parametrize("text", [
+    "parallel:\n  mesh_shape: [2, 2]\n",
+    "model:\n  skips: [4]\n"
+    "training:\n  scheduler_milestones: [200000, 400000]\n",
+    "a: []\nb: [x, 1.5, true, null, ~]\nc: [1,2]\nd: [ -3 , +4 ]  # tail\n",
+])
+def test_flow_sequences_resolve_as_safe_load(text):
+    assert tconfig.parse_yaml(text) == yaml.safe_load(text)
+
+
 @pytest.mark.parametrize("text,line", [
-    ("a: [1, 2]", 1), ("a:\n  b: {c: 1}", 2), ("a:\n  - 1", 2),
+    ("a: [1, [2]]", 1), ("a:\n  b: [1, 2", 2), ("a: [1, , 2]", 1),
+    ("a: [x: 1]", 1), ("a:\n  b: {c: 1}", 2), ("a:\n  - 1", 2),
     ("a: 'quoted'", 1), ('a: "quoted"', 1), ("a: &anchor 1", 1),
     ("a: *alias", 1), ("a: |\n  block", 1), ("a: >\n  folded", 1),
     ("a: !!str 1", 1), ("---\na: 1", 1), ("a: 010", 1), ("a: 0x1f", 1),
@@ -89,11 +102,15 @@ def test_saved_config_loads_back_in_both_readers(tmp_path):
                            sync_start_iter=3, w_syncloss=0.5)
     cfg["model"].update(use_post_fusion_blackaug=False,
                         canonical_depth_init_path=None)
+    cfg["parallel"]["mesh_shape"] = [2, 2]
+    cfg["model"]["skips"] = [3]
+    cfg["training"]["scheduler_milestones"] = []
     path = str(tmp_path / "cfg.yaml")
     tconfig.save_config(path, cfg)
+    assert "mesh_shape: [2, 2]" in open(path).read()
     assert tconfig.load_config(path) == cfg
     assert jconfig.load_config(path) == cfg
-    # lists can only be written where they equal the defaults
-    cfg["model"]["skips"] = [3]
+    # lists are flow sequences of plain scalars, and nothing more
+    cfg["model"]["skips"] = [[3]]
     with pytest.raises(tconfig.YamlSubsetError):
         tconfig.save_config(path, cfg)

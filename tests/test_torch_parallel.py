@@ -69,13 +69,16 @@ def _rel(got, ref):
 # -- the mesh -------------------------------------------------------------------
 
 def test_make_mesh_checks_its_shape():
+    """data * pixel must be the world size, whatever the split; a mesh
+    with a pixel axis is a mesh like any other (its ranks: the pixel
+    axis tests, tests/test_torch_pixel_axis.py)."""
     mesh = tmesh.make_mesh(device="cpu")
     assert mesh.shape == {"data": 1, "pixel": 1} and mesh.rank == 0
+    assert (mesh.world, mesh.data_index, mesh.pixel_index) == (1, 0, 0)
     assert tmesh.make_mesh([1, 1]) == mesh
-    with pytest.raises(ValueError, match="needs 2 ranks"):
-        tmesh.make_mesh([2, 1])
-    with pytest.raises(NotImplementedError, match="pixel"):
-        tmesh.make_mesh([1, 2])
+    for shape in ([2, 1], [1, 2], [2, 2]):
+        with pytest.raises(ValueError, match="needs"):
+            tmesh.make_mesh(shape)
 
 
 def test_one_rank_collectives_return_their_input():
@@ -86,7 +89,7 @@ def test_one_rank_collectives_return_their_input():
         assert tmesh.all_gather_rows(x, mesh) is x
         assert tmesh.mean_tensors([x], mesh)[0] is x
         assert tmesh.shard_batch({"a": x}, mesh)["a"] is x
-        with tmesh.data_axis(mesh):
+        with tmesh.on_mesh(mesh):
             assert tmesh.active() is None
 
 

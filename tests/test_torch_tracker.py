@@ -258,15 +258,16 @@ def test_fit_with_images_runs(world):
 
 def test_mesh_over_devices_raises(world):
     """A mesh asks for as many ranks as the group has (``ValueError``
-    otherwise, as the JAX mesh asks for devices) and no pixel axis; a mesh
-    of one rank leaves the tracker on one device."""
-    from speech2lip_tpu_torch.parallel.mesh import make_mesh
+    otherwise, as the JAX mesh asks for devices), on either axis; a mesh
+    of one rank, or of one data index, leaves the tracker on one device."""
+    from speech2lip_tpu_torch.parallel.mesh import Mesh, make_mesh
     _, ta, _, _, lms = world
-    with pytest.raises(ValueError, match="needs 2 ranks"):
-        tt.FaceTracker(ta, lms, _cfg(tt), mesh=make_mesh((2, 1)))
-    with pytest.raises(NotImplementedError, match="pixel"):
-        make_mesh((1, 2))
+    for shape in ((2, 1), (1, 2)):
+        with pytest.raises(ValueError, match="needs 2 ranks"):
+            tt.FaceTracker(ta, lms, _cfg(tt), mesh=make_mesh(shape))
     assert tt.FaceTracker(ta, lms, _cfg(tt), mesh=make_mesh()).mesh is None
+    assert tt.FaceTracker(ta, lms, _cfg(tt), mesh=Mesh(
+        1, 2, 1, torch.device("cpu"))).mesh is None
 
 
 def test_bench_preprocess_tool_runs(capsys):

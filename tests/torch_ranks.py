@@ -62,14 +62,14 @@ def _numpy(tree):
 # -- the train step ------------------------------------------------------------
 
 def train_step(statics, params, unet, state, frozen, batch, draws, lr,
-               mesh_on=True):
+               mesh_on=True, mesh_shape=None):
     """One ``make_train_step`` step on this rank's rows of the global
-    ``batch`` and ``draws`` (numpy); returns the new state and the
-    metrics as numpy."""
+    ``batch`` and ``draws`` (numpy), on a ``mesh_shape`` mesh (default
+    ``(world, 1)``); returns the new state and the metrics as numpy."""
     from speech2lip_tpu_torch.parallel.mesh import make_mesh, shard_batch
     from speech2lip_tpu_torch.train import train_step as ts
 
-    mesh = make_mesh() if mesh_on else None
+    mesh = make_mesh(mesh_shape) if mesh_on else None
     st = ts.StepStatics(**statics)
     opt = ts.Adam(lr)
     p, up, us = _to_torch(params), _to_torch(unet), _to_torch(state)
@@ -80,6 +80,31 @@ def train_step(statics, params, unet, state, frozen, batch, draws, lr,
     return {"params": _numpy(new.params), "unet": _numpy(new.unet_params),
             "state": _numpy(new.unet_state),
             "metrics": {k: float(v) for k, v in metrics.items()}}
+
+
+# -- the U-Net on a band of rows a rank ------------------------------------------
+
+def unet_bands(mesh_shape, params, state, x, cot):
+    """The train-mode U-Net on this rank's band of ``x``'s rows, gathered
+    into whole frames, and the gradients of sum(face * cot) with respect
+    to ``x`` and every parameter, averaged over the mesh (numpy)."""
+    from speech2lip_tpu_torch.models import unet_light
+    from speech2lip_tpu_torch.parallel import mesh as mesh_mod
+    from speech2lip_tpu_torch.train import train_step as ts
+
+    mesh = mesh_mod.make_mesh(mesh_shape)
+    p = ts.tree_map(lambda t: t.requires_grad_(True), _to_torch(params))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    band = mesh_mod.frame_band(mesh, x.shape[1])
+    out, new = unet_light.apply(p, _to_torch(state),
+                                xt[:, band.start:band.stop], train=True,
+                                band=band)
+    face = mesh_mod.gather_bands(out, band)
+    leaves = [xt] + ts.tree_leaves(p)
+    grads = torch.autograd.grad((face * torch.from_numpy(cot)).sum(), leaves)
+    grads = mesh_mod.mean_tensors(grads, mesh, mesh_mod.ALL)
+    return {"rows": band.rows, "face": _numpy(face), "state": _numpy(new),
+            "grad_x": _numpy(grads[0]), "grads": _numpy(grads[1:])}
 
 
 # -- fit -------------------------------------------------------------------------
