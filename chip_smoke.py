@@ -414,10 +414,12 @@ def user_loop(dev, card: str, tmp: str) -> dict:
     directory ``tmp``.  Checks the launches of each run, finite losses,
     the files, a bit-exact restore and the rendered frames; returns the
     launches by path, the timings and the identity (its config's path)."""
+    import copy
     import os
     import statistics
 
     import numpy as np
+    import yaml
 
     from speech2lip_tpu_torch.cli import infer as cli_infer
     from speech2lip_tpu_torch.cli import train as cli_train
@@ -460,12 +462,29 @@ def user_loop(dev, card: str, tmp: str) -> dict:
                            out_dir=os.path.join(tmp, "run"))
     path = os.path.join(tmp, "identity.yaml")
     save_config(path, cfg)
+    text = open(path).read()
     require(load_config(path) == cfg, "the written config reads back "
             "as another")
+    require("  skips:\n  - " in text, "the written config holds no block "
+            "sequence")
+    # a config in the forms a user writes by hand, inheriting the loop's
+    child = os.path.join(tmp, "child.yaml")
+    with open(child, "w") as f:
+        f.write("inherit_from: identity.yaml\ndata:\n"
+                "  path: \"data/a quoted path\"\n"
+                "test:\n  model_file: 'model_7.ckpt'\n"
+                "training:\n  scheduler_milestones: [7,\n    9]\n")
+    want = copy.deepcopy(cfg)
+    want["data"]["path"] = "data/a quoted path"
+    want["test"]["model_file"] = "model_7.ckpt"
+    want["training"]["scheduler_milestones"] = [7, 9]
+    require(load_config(child) == want, "a hand-written config "
+            "inheriting the loop's reads as another")
     log(f"# user loop: learnable tree {LOOP_FRAMES} frames at face "
         f"{FACE}, lip {LIP_H}x{LIP_W} written in "
-        f"{time.perf_counter() - t0:.1f} s; config:\n" + "".join(
-            f"#   {line}\n" for line in open(path).read().splitlines()))
+        f"{time.perf_counter() - t0:.1f} s; config: {path} "
+        f"({len(text.splitlines())} lines by yaml {yaml.__version__} "
+        f"safe_dump), read back with {os.path.basename(child)}")
     tr = cfg["training"]
     val_frames = cfg["data"]["val_split_frames"]
     run_dir = tr["out_dir"]

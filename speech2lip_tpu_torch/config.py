@@ -1,27 +1,22 @@
 """Hierarchical configuration with ``inherit_from`` semantics (counterpart
-of ``speech2lip_tpu/core/config.py``), without yaml.
+of ``speech2lip_tpu/core/config.py``).
 
 ``DEFAULT_CONFIG`` is a copy of the JAX package's default tree, and
-``load_config`` follows ``inherit_from`` chains as it does: a relative
-parent path is taken from the child's directory, parents load first, the
-child deep-merges on top, and a chain deeper than 8 raises.
-
-The port reads the YAML subset that the configs use, and nothing else
-(``parse_yaml``): block mappings nested by spaces, plain scalars (int,
-float, bool, null, string, resolved as ``yaml.safe_load`` resolves them),
-one-line flow sequences of plain scalars (``mesh_shape: [2, 2]``,
-``skips: [4]``) and ``#`` comments.  Anything outside the subset (block
-sequences, nested or multi-line flow collections, flow mappings, quotes,
-anchors, aliases, tags, block scalars, documents) raises with its line
-number.  ``dump_yaml`` writes a config in the same subset.
+``load_config`` reads each file with ``yaml.safe_load`` and follows
+``inherit_from`` chains as it does: a relative parent path is taken from
+the child's directory, parents load first, the child deep-merges on top,
+and a chain deeper than 8 raises.  ``save_config`` writes a tree with
+``yaml.safe_dump``, as the JAX package's tools do, so either package
+reads the other's configs.
 """
 
 from __future__ import annotations
 
 import copy
 import os
-import re
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional
+
+import yaml
 
 DEFAULT_CONFIG: Dict[str, Any] = {
     "method": "face_simple",
@@ -147,7 +142,9 @@ def load_config(path: str, default: Optional[Dict[str, Any]] = None,
     if _depth > 8:
         raise RecursionError(f"inherit_from chain too deep at {path}")
     with open(path, "r") as f:
-        cfg_special = parse_yaml(f.read(), path) or {}
+        cfg_special = yaml.safe_load(f) or {}
+    if not isinstance(cfg_special, dict):
+        raise ValueError(f"{path}: the top level is not a mapping")
 
     inherit_from = cfg_special.pop("inherit_from", None)
     if inherit_from is not None:
@@ -166,205 +163,8 @@ def default_config() -> Dict[str, Any]:
     return copy.deepcopy(DEFAULT_CONFIG)
 
 
-# -- the YAML subset ----------------------------------------------------------
-
-# yaml.safe_load's implicit resolvers (YAML 1.1) for the forms the subset
-# reads, and the ones it refuses rather than misread
-_BOOL = {"yes": True, "Yes": True, "YES": True, "true": True, "True": True,
-         "TRUE": True, "on": True, "On": True, "ON": True,
-         "no": False, "No": False, "NO": False, "false": False,
-         "False": False, "FALSE": False, "off": False, "Off": False,
-         "OFF": False}
-_NULL = ("", "~", "null", "Null", "NULL")
-_INT = re.compile(r"[-+]?(?:0|[1-9][0-9_]*)")
-_FLOAT = re.compile(r"[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
-                    r"|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?")
-_SPECIAL_FLOAT = {".inf": float("inf"), ".Inf": float("inf"),
-                  ".INF": float("inf"), "+.inf": float("inf"),
-                  "+.Inf": float("inf"), "+.INF": float("inf"),
-                  "-.inf": float("-inf"), "-.Inf": float("-inf"),
-                  "-.INF": float("-inf"), ".nan": float("nan"),
-                  ".NaN": float("nan"), ".NAN": float("nan")}
-# ints in base 2, 8 or 16, sexagesimal numbers and timestamps
-_OTHER = re.compile(r"[-+]?0b[0-1_]+|[-+]?0[0-7_]+|[-+]?0x[0-9a-fA-F_]+"
-                    r"|[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+(?:\.[0-9_]*)?"
-                    r"|[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}.*")
-_KEY = re.compile(r"[A-Za-z_][A-Za-z0-9_.\-]*")
-# a plain scalar may not start with these indicators
-_INDICATORS = "-?:,[]{}#&*!|>'\"%@`"
-
-
-class YamlSubsetError(ValueError):
-    """A config file uses YAML outside the subset the port reads."""
-
-
-def _fail(where: str, lineno: int, why: str):
-    raise YamlSubsetError(f"{where}:{lineno}: {why} (outside the YAML "
-                          f"subset of block mappings, plain scalars and "
-                          f"flow sequences of them)")
-
-
-def _scalar(text: str, where: str, lineno: int) -> Any:
-    if text in _NULL:
-        return None
-    if text in _BOOL:
-        return _BOOL[text]
-    if text in _SPECIAL_FLOAT:
-        return _SPECIAL_FLOAT[text]
-    if _INT.fullmatch(text):
-        return int(text.replace("_", ""))
-    if _FLOAT.fullmatch(text):
-        return float(text.replace("_", ""))
-    if _OTHER.fullmatch(text):
-        _fail(where, lineno, f"number or date form {text!r}")
-    if text[0] in _INDICATORS or text == "=":
-        _fail(where, lineno, f"scalar {text!r} starts with an indicator")
-    if ": " in text or text.endswith(":") or " #" in text or "\t" in text:
-        _fail(where, lineno, f"scalar {text!r}")
-    return text
-
-
-def _flow_sequence(text: str, where: str, lineno: int) -> List[Any]:
-    """``[a, b, ...]`` on one line: its items, each a plain scalar."""
-    if not text.endswith("]"):
-        _fail(where, lineno, f"flow sequence {text!r} does not close on "
-                             f"its line")
-    body = text[1:-1].strip()
-    if not body:
-        return []
-    items = []
-    for item in body.split(","):
-        item = item.strip()
-        if not item or any(c in item for c in "[]{}"):
-            _fail(where, lineno, f"flow sequence item {item!r}")
-        items.append(_scalar(item, where, lineno))
-    return items
-
-
-def _strip_comment(line: str) -> str:
-    """The line without its ``#`` comment (a ``#`` at the start or after a
-    space opens one)."""
-    for i, ch in enumerate(line):
-        if ch == "#" and (i == 0 or line[i - 1] in " \t"):
-            return line[:i]
-    return line
-
-
-def parse_yaml(text: str, where: str = "<config>") -> Optional[Dict[str, Any]]:
-    """Parse the YAML subset into nested dicts; None for an empty file."""
-    lines: List[Tuple[int, int, str]] = []   # (lineno, indent, content)
-    for lineno, raw in enumerate(text.splitlines(), 1):
-        body = _strip_comment(raw).rstrip()
-        if not body.strip():
-            continue
-        stripped = body.lstrip(" ")
-        if stripped[0] == "\t" or "\t" in body[:len(body) - len(stripped)]:
-            _fail(where, lineno, "tab in indentation")
-        if stripped.startswith(("---", "...", "%")):
-            _fail(where, lineno, "document marker or directive")
-        lines.append((lineno, len(body) - len(stripped), stripped))
-    if not lines:
-        return None
-
-    pos = 0
-
-    def block(indent: int) -> Dict[str, Any]:
-        nonlocal pos
-        out: Dict[str, Any] = {}
-        while pos < len(lines):
-            lineno, ind, content = lines[pos]
-            if ind < indent:
-                break
-            if ind > indent:
-                _fail(where, lineno, "unexpected indentation")
-            key, sep, rest = content.partition(":")
-            if not sep or (rest and rest[0] != " "):
-                _fail(where, lineno, f"{content!r} is not a 'key: value' "
-                                     f"line")
-            if not _KEY.fullmatch(key) or not isinstance(
-                    _scalar(key, where, lineno), str):
-                _fail(where, lineno, f"key {key!r}")
-            if key in out:
-                _fail(where, lineno, f"duplicate key {key!r}")
-            value = rest.strip()
-            pos += 1
-            if value.startswith("["):
-                out[key] = _flow_sequence(value, where, lineno)
-            elif value:
-                out[key] = _scalar(value, where, lineno)
-            elif pos < len(lines) and lines[pos][1] > indent:
-                out[key] = block(lines[pos][1])
-            else:
-                out[key] = None
-        return out
-
-    if lines[0][1] != 0:
-        _fail(where, lines[0][0], "the top level must start at column 0")
-    return block(0)
-
-
-def _dump_scalar(value: Any, key: str) -> str:
-    """One plain scalar that ``parse_yaml`` reads back as ``value``."""
-    if value is None:
-        return "null"
-    if isinstance(value, bool):
-        return "true" if value else "false"
-    if isinstance(value, int):
-        return str(value)
-    text = value if isinstance(value, str) else None
-    if isinstance(value, float):
-        text = repr(value)
-        if "e" in text and "." not in text:
-            text = text.replace("e", ".0e")   # '1e-05' reads as a string
-    try:
-        back = _scalar(text, key, 0) if text is not None else None
-    except YamlSubsetError:
-        back = None
-    if back != value or type(back) is not type(value):
-        raise YamlSubsetError(f"{key}: {value!r} cannot be written in the "
-                              f"YAML subset")
-    return text
-
-
-def _dump_value(value: Any, key: str) -> str:
-    """A plain scalar, or a list of them as a flow sequence, that
-    ``parse_yaml`` reads back as ``value``."""
-    if not isinstance(value, (list, tuple)):
-        return _dump_scalar(value, key)
-    items = [_dump_scalar(v, key) for v in value]
-    if any(c in t for t in items for c in ",[]{}"):
-        raise YamlSubsetError(f"{key}: {value!r} cannot be written as a "
-                              f"flow sequence of plain scalars")
-    return "[" + ", ".join(items) + "]"
-
-
-def dump_yaml(cfg: Dict[str, Any], base: Optional[Dict[str, Any]] = None,
-              indent: int = 0) -> str:
-    """``cfg`` as text in the YAML subset.  With ``base`` (for example
-    ``DEFAULT_CONFIG``) only the entries that differ from it are written,
-    so ``load_config`` of the text gives ``cfg`` back; a list is written
-    as a flow sequence of plain scalars, and a tuple reads back as a
-    list."""
-    out = []
-    for key, value in cfg.items():
-        ref = base.get(key) if isinstance(base, dict) else None
-        if base is not None and key in base and value == ref:
-            continue
-        if isinstance(value, dict):
-            body = dump_yaml(value, ref if isinstance(ref, dict) else None,
-                             indent + 2)
-            if not value:
-                raise YamlSubsetError(f"{key}: an empty mapping cannot be "
-                                      f"written in the YAML subset")
-            if body:
-                out.append(" " * indent + f"{key}:\n{body.rstrip()}")
-            continue
-        out.append(" " * indent + f"{key}: {_dump_value(value, key)}")
-    return "".join(line + "\n" for line in out)
-
-
 def save_config(path: str, cfg: Dict[str, Any]):
-    """Write ``cfg`` to ``path`` in the YAML subset, as its differences
-    from ``DEFAULT_CONFIG`` (``load_config`` of the file gives ``cfg``)."""
+    """Write the whole of ``cfg`` to ``path`` as ``yaml.safe_dump`` writes
+    it, the bytes the JAX package's tools write for the same tree."""
     with open(path, "w") as f:
-        f.write(dump_yaml(cfg, DEFAULT_CONFIG))
+        yaml.safe_dump(cfg, f)

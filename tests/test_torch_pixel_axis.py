@@ -345,7 +345,7 @@ def test_cli_train_on_a_pixel_mesh_from_yaml_equals_one_process_fit(
                parallel=dict(cfg["parallel"], mesh_shape=[1, 2]))
     path = str(tmp_path / "cfg.yaml")
     tconfig.save_config(path, two)
-    assert "mesh_shape: [1, 2]" in open(path).read()
+    assert "  mesh_shape:\n  - 1\n  - 2\n" in open(path).read()
     assert tconfig.load_config(path) == json.loads(json.dumps(two))
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     launch(2, "speech2lip_tpu_torch.cli.train",
