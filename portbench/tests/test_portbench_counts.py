@@ -1,0 +1,63 @@
+"""The frozen counts of the yardstick."""
+
+import torch
+import pytest
+
+from portbench.counts import flops
+
+
+def test_unet_convs_of_a_may_frame():
+    assert flops.unet_conv_ops(500, 500) / 1e9 == pytest.approx(157.5, abs=0.05)
+
+
+def test_k3_bound_at_batch_8_is_its_ops():
+    # PERF.md's K3 row: 1.274 ms at batch 8, bound by operations
+    t, by = flops.bound_s(flops.unet_conv_ops(500, 500, 8),
+                          flops.fused_block_bytes(500, 500, 8), "bf16")
+    assert by == "ops" and 1e3 * t == pytest.approx(1.274, abs=5e-4)
+
+
+def test_k1_ops_equal_the_tool_count():
+    """K1's count equals ``tools/bench_fused_mlp.ops`` on the renderer's
+    arguments at the May lip (9,600 rows) and 8 frames."""
+    from speech2lip_tpu_torch.tools import bench_fused_mlp
+    w, d = 256, 8
+    trunk = [torch.zeros(2 * w if i == 5 else w, w) for i in range(d)]
+    a = (torch.zeros(9600, 42), torch.zeros(8, w), torch.zeros(8, w),
+         torch.zeros(42, w), torch.zeros(42, w), trunk, None,
+         torch.zeros(w, 3), None)
+    assert flops.fused_mlp_ops(9600, 8) == bench_fused_mlp.ops(a)
+    # about 11.4 GFLOP a frame at batch 8 (the shared projections amortised)
+    assert flops.fused_mlp_ops(9600, 8) / 8e9 == pytest.approx(11.39,
+                                                               abs=0.01)
+
+
+def test_serve_and_train_totals():
+    s = flops.summary()
+    assert s["serve_gflop_frame"] == pytest.approx(169.38, abs=0.01)
+    # 3x (ensemble MLP + U-Net + depth warp) + LPIPS 3x on lip and face
+    assert 600 < s["train_gflop_iter"] < 700
+
+
+def test_alexnet_on_a_frame():
+    # 0.714 + 2.286 + 1.194 + 1.592 + 1.062 GFLOP (124^2, 61^2, 30^2 x3)
+    assert flops.alexnet_ops(500, 500) / 1e9 == pytest.approx(6.849, abs=1e-3)
+
+
+def test_avatar_counts_follow_the_benchmark_crop_rule():
+    """The avatar's U-Net work is counted over the crop that the
+    benchmark's own rule gives, whatever the program under test holds."""
+    from portbench.reference import common
+    from portbench.tests import small
+    s = small.session(small.cell("serve.avatar-b8"))
+    s.setup()
+    s.window_run(0.05)
+    g = common.crop_rule(s.window, s.face, s.face)
+    assert g is not None and g["ch"] * g["cw"] < s.face ** 2
+    frames = s.batches * s.batch
+    s.program = None
+    ctx = s.context()
+    assert ctx["model_ops"] == flops.serve_frame_ops(
+        s.lip["h"], s.lip["w"], g["ch"], g["cw"], frames)
+    assert ctx["kernels"]["fused_block"]["bound_s"] == (
+        s.batches * flops.fused_block_bound_s(g["ch"], g["cw"], s.batch))
