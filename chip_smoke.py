@@ -283,11 +283,10 @@ PROFILE_GROUPS = (
 )
 
 
-def profile_steps(run, what: str, step_ms: float, steps: int = 2):
+def profile_steps(run, what: str, steps: int = 2):
     """Device time of ``steps`` calls of ``run`` by kernel group and the
-    busiest kernels (torch.profiler), against ``step_ms`` of CUDA-event
-    wall time per step measured without the profiler.  Returns (device ms,
-    kernel launches) per step."""
+    busiest kernels (torch.profiler).  Returns (device ms, kernel launches)
+    per step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -319,8 +318,7 @@ def profile_steps(run, what: str, step_ms: float, steps: int = 2):
         else:
             groups["other (elementwise, reductions, glue)"] += ms
     log(f"# profile {what}: device time {total:.2f} ms per step over "
-        f"{launches // steps} kernel launches, against {step_ms:.2f} ms "
-        f"wall: busy {100 * total / step_ms:.1f}%")
+        f"{launches // steps} kernel launches")
     if total == 0:
         # the profiler can drop a short run's activity records; this log
         # is no count (graph_launches counts a call's launches exactly)
@@ -3571,7 +3569,7 @@ def main() -> int:
         # a call's device launches (dsrc: zero-fill, scatter, cast): the
         # nodes of a graph of one call; a profile of a few calls logs the
         # kernels' device time
-        profile_steps(kernel, f"K7 hat_sample_{kern} calls", k_ms, steps=5)
+        profile_steps(kernel, f"K7 hat_sample_{kern} calls", steps=5)
         kinds = graph_launches(kernel)
         per_call = sum(kinds.values())
         log(f"# K7 hat_sample_{kern} call as a CUDA graph: {kinds}")
@@ -3671,10 +3669,9 @@ def main() -> int:
     # the plain path's profile measures what the plain K2/K7 versions
     # cost inside the step, where dsrc's cotangent is zero off the lip box
     dev_k, _ = profile_steps(lambda: step(state, tbatch, draws),
-                             f"train step bf16 B={TRAIN_B}", t_train[True])
+                             f"train step bf16 B={TRAIN_B}")
     dev_p, _ = profile_steps(lambda: plain_step(state, tbatch, draws),
-                             f"plain-path train step bf16 B={TRAIN_B}",
-                             t_train[False])
+                             f"plain-path train step bf16 B={TRAIN_B}")
     log(f"# profile device time per step, plain path minus kernel path: "
         f"{dev_p - dev_k:.3f} ms")
 
@@ -3704,11 +3701,11 @@ def main() -> int:
         if bsz == 8:
             dev_ms, n_launch = profile_steps(
                 lambda: renderer(bb, geo["lip_x"], geo["lip_y"]),
-                "Renderer bf16 batch 8", ms, steps=3)
+                "Renderer bf16 batch 8", steps=3)
             log(f"# Renderer bf16 batch 8: {n_launch} kernel launches and "
                 f"{dev_ms:.2f} ms of device time a batch")
             profile_steps(lambda: static(bb["audio"], bb["index"]),
-                          "static scene bf16 batch 8", sms, steps=3)
+                          "static scene bf16 batch 8", steps=3)
         del bb
 
     pallas = "speech2lip_tpu/ops/pallas/"

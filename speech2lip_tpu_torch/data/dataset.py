@@ -20,6 +20,7 @@ from typing import Any, Dict, List
 
 import numpy as np
 
+from speech2lip_tpu_torch.core import spans
 from speech2lip_tpu_torch.data.image_io import imread_float as _imread_float
 from speech2lip_tpu_torch.ops import audio_dsp
 from speech2lip_tpu_torch.ops.grid_sample import grid_sample_np
@@ -227,9 +228,12 @@ class LipDataset:
         }
         if self.mode != "test":
             fname = self.files[idx]
-            s["rgb"] = _imread_float(os.path.join(self.images_dir, fname))
-            s["rgb_face_ori"] = _imread_float(os.path.join(self.faces_dir, fname))
-            s["coord"] = self._coord(pos)
+            with spans.span("build.read"):
+                s["rgb"] = _imread_float(os.path.join(self.images_dir,
+                                                      fname))
+                s["rgb_face_ori"] = _imread_float(os.path.join(
+                    self.faces_dir, fname))
+                s["coord"] = self._coord(pos)
             s["height"] = np.int32(self.lip_h)
             s["width"] = np.int32(self.lip_w)
         else:
@@ -253,9 +257,11 @@ class LipDataset:
             s["mask_face_canonical"] = self.mask_face_canonical
 
         if self.use_syncloss and self.mode == "train" and self.orig_mel is not None:
-            s.update(self._sync_extras(pos))
+            with spans.span("build.sync_extras"):
+                s.update(self._sync_extras(pos))
         if self.mode == "train" and "coord" in s:
-            s.update(self.blackaug_statics(s["coord"]))
+            with spans.span("build.warp"):
+                s.update(self.blackaug_statics(s["coord"]))
         return s
 
     def blackaug_statics(self, coord: np.ndarray) -> Dict[str, Any]:

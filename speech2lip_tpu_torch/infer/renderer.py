@@ -16,6 +16,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from speech2lip_tpu_torch.core import spans
 from speech2lip_tpu_torch.models import talking_face as tf
 from speech2lip_tpu_torch.models import unet_light
 from speech2lip_tpu_torch.ops import nn as tnn
@@ -67,21 +68,28 @@ def render_face_batch(params, unet_params, unet_state, batch: Dict[str, Any],
     validated (data.windows.compute_warp_window) to hold every warped-lip
     pixel.  Returns {'lip': [B,lh,lw,3], 'face': [B,H,W,3]} float32.
     """
-    rgb_lip = render_lip_batch(params, batch["audio"], batch["index"].float(),
-                               lip_h, lip_w, use_kernels=use_kernels,
-                               compute_dtype=compute_dtype)
-    cast = lambda x: x.to(compute_dtype)
-    unet_in, _, _ = tf.post_fusion_composite(
-        cast(rgb_lip), cast(batch["rgb_face_zero"]),
-        cast(batch["rgb_face_ori"]), cast(batch["mask_lip_canonical"]),
-        batch["coord"].float(), lip_x, lip_y, expand_divisor=expand_divisor,
-        window=window, use_kernels=use_kernels)
-    unet_in = unet_in.to(compute_dtype)
-    if use_kernels:
-        face = unet_light.apply_infer_fused(unet_params, unet_state, unet_in)
-    else:
-        face, _ = unet_light.apply(unet_params, unet_state, unet_in)
-    return {"lip": rgb_lip, "face": face.float()}
+    with spans.span("render.lip"):
+        rgb_lip = render_lip_batch(params, batch["audio"],
+                                   batch["index"].float(), lip_h, lip_w,
+                                   use_kernels=use_kernels,
+                                   compute_dtype=compute_dtype)
+    with spans.span("render.composite"):
+        cast = lambda x: x.to(compute_dtype)
+        unet_in, _, _ = tf.post_fusion_composite(
+            cast(rgb_lip), cast(batch["rgb_face_zero"]),
+            cast(batch["rgb_face_ori"]), cast(batch["mask_lip_canonical"]),
+            batch["coord"].float(), lip_x, lip_y,
+            expand_divisor=expand_divisor, window=window,
+            use_kernels=use_kernels)
+        unet_in = unet_in.to(compute_dtype)
+    with spans.span("render.unet"):
+        if use_kernels:
+            face = unet_light.apply_infer_fused(unet_params, unet_state,
+                                                unet_in)
+        else:
+            face, _ = unet_light.apply(unet_params, unet_state, unet_in)
+        face = face.float()
+    return {"lip": rgb_lip, "face": face}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -132,7 +140,7 @@ class Renderer:
 
     def __call__(self, batch: Dict[str, Any], lip_x: int, lip_y: int):
         p, up, us = self.params
-        with torch.no_grad():
+        with spans.span("render"), torch.no_grad():
             return render_face_batch(
                 p, up, us, batch, lip_x=int(lip_x), lip_y=int(lip_y),
                 lip_h=self.lip_h, lip_w=self.lip_w,

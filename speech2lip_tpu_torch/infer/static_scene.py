@@ -25,6 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from speech2lip_tpu_torch.core import spans
 from speech2lip_tpu_torch.infer.renderer import (_DTYPES, cast_tree,
                                                  render_lip_batch,
                                                  resolve_device)
@@ -154,16 +155,18 @@ class StaticSceneRenderer:
         audio = torch.as_tensor(audio).to(self.device, torch.float32)
         t = torch.as_tensor(t_indices).to(self.device, torch.float32)
         b = audio.shape[0]
-        rgb_lip = render_lip_batch(self.params, audio, t, self.lip_h,
-                                   self.lip_w, use_kernels=use_kernels,
-                                   compute_dtype=self.compute_dtype)
-        fz, gt, mask = (x.expand(b, *x.shape[1:]) for x in self.scene)
-        unet_in, _, _ = tf.post_fusion_composite(
-            rgb_lip.to(self.compute_dtype), fz, gt, mask,
-            self.coord.expand(b, *self.coord.shape[1:]), self.lip_x,
-            self.lip_y, expand_divisor=self.expand_divisor,
-            window=self.window, use_kernels=use_kernels)
-        return unet_in.to(self.compute_dtype)
+        with spans.span("render.lip"):
+            rgb_lip = render_lip_batch(self.params, audio, t, self.lip_h,
+                                       self.lip_w, use_kernels=use_kernels,
+                                       compute_dtype=self.compute_dtype)
+        with spans.span("render.composite"):
+            fz, gt, mask = (x.expand(b, *x.shape[1:]) for x in self.scene)
+            unet_in, _, _ = tf.post_fusion_composite(
+                rgb_lip.to(self.compute_dtype), fz, gt, mask,
+                self.coord.expand(b, *self.coord.shape[1:]), self.lip_x,
+                self.lip_y, expand_divisor=self.expand_divisor,
+                window=self.window, use_kernels=use_kernels)
+            return unet_in.to(self.compute_dtype)
 
     def _render(self, unet_in, unet, static_face):
         """``unet`` on the crop of the composite, its interior pasted into
@@ -185,11 +188,13 @@ class StaticSceneRenderer:
     def __call__(self, audio, t_indices):
         """audio [B, 16, 29], t_indices [B] -> faces [B, H, W, 3] float32:
         the U-Net on the crop, its interior pasted into ``static_face``."""
-        with torch.no_grad():
-            return self._render(
-                self._composite(audio, t_indices, self.use_kernels),
-                lambda x: _apply_unet(self.unet_params, self.unet_state, x,
-                                      self.use_kernels), self.static_face)
+        with spans.span("render"), torch.no_grad():
+            unet_in = self._composite(audio, t_indices, self.use_kernels)
+            with spans.span("render.unet"):
+                return self._render(
+                    unet_in, lambda x: _apply_unet(
+                        self.unet_params, self.unet_state, x,
+                        self.use_kernels), self.static_face)
 
     def render_plain(self, audio, t_indices):
         """The kernel path's batch computed with no kernel, on this

@@ -27,6 +27,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from speech2lip_tpu_torch.core import spans
 from speech2lip_tpu_torch.infer.renderer import batched_frame_feature
 from speech2lip_tpu_torch.models import syncnet as syncnet_mod
 from speech2lip_tpu_torch.models import talking_face as tf
@@ -562,19 +563,22 @@ def loss_and_grads(params, unet_params, unet_state, frozen, batch, draws,
         "unet": tree_map(lambda t: t.detach().requires_grad_(
             not st.postnet_frozen), unet_params)}
     with full_float32(), mesh_mod.on_mesh(mesh):
-        total, (metrics, new_unet_state) = compute_losses(
-            trainable["model"], trainable["unet"], unet_state, frozen,
-            batch, draws, st)
+        with spans.span("step.forward"):
+            total, (metrics, new_unet_state) = compute_losses(
+                trainable["model"], trainable["unet"], unet_state, frozen,
+                batch, draws, st)
         leaves = tree_leaves(trainable)
         need = [t for t in leaves if t.requires_grad]
-        got = iter(torch.autograd.grad(total, need, allow_unused=True))
-    grads = [next(got) if t.requires_grad else None for t in leaves]
-    grads = [torch.zeros_like(t) if g is None else g
-             for g, t in zip(grads, leaves)]
-    grads = mesh_mod.mean_tensors(grads, mesh, mesh_mod.ALL)
-    metrics = reduce_metrics({k: v.detach() for k, v in metrics.items()},
-                             mesh)
-    metrics["grad_norm"] = torch.nn.utils.get_total_norm(grads)
+        with spans.span("step.backward"):
+            got = iter(torch.autograd.grad(total, need, allow_unused=True))
+    with spans.span("step.update"):
+        grads = [next(got) if t.requires_grad else None for t in leaves]
+        grads = [torch.zeros_like(t) if g is None else g
+                 for g, t in zip(grads, leaves)]
+        grads = mesh_mod.mean_tensors(grads, mesh, mesh_mod.ALL)
+        metrics = reduce_metrics({k: v.detach() for k, v in metrics.items()},
+                                 mesh)
+        metrics["grad_norm"] = torch.nn.utils.get_total_norm(grads)
     return grads, metrics, new_unet_state, trainable
 
 
@@ -590,20 +594,22 @@ def make_train_step(optimizer: Adam, st: StepStatics, frozen, mesh=None):
     ends it with the same state."""
 
     def step(state: TrainState, batch, draws):
-        grads, metrics, new_unet_state, trainable = loss_and_grads(
-            state.params, state.unet_params, state.unet_state, frozen, batch,
-            draws, st, mesh)
-        leaves = tree_leaves(trainable)
-        updates, new_opt = optimizer.update(grads, state.opt_state)
-        n_model = len(tree_leaves(trainable["model"]))
-        new_leaves = [
-            t.detach() if st.postnet_frozen and i >= n_model
-            else (t + u).detach()
-            for i, (t, u) in enumerate(zip(leaves, updates))]
-        new = tree_unflatten(trainable, new_leaves)
-        new_state = TrainState(new["model"], new["unet"], new_unet_state,
-                               new_opt, state.it + 1)
-        return new_state, metrics
+        with spans.span("step"):
+            grads, metrics, new_unet_state, trainable = loss_and_grads(
+                state.params, state.unet_params, state.unet_state, frozen,
+                batch, draws, st, mesh)
+            with spans.span("step.update"):
+                leaves = tree_leaves(trainable)
+                updates, new_opt = optimizer.update(grads, state.opt_state)
+                n_model = len(tree_leaves(trainable["model"]))
+                new_leaves = [
+                    t.detach() if st.postnet_frozen and i >= n_model
+                    else (t + u).detach()
+                    for i, (t, u) in enumerate(zip(leaves, updates))]
+                new = tree_unflatten(trainable, new_leaves)
+            new_state = TrainState(new["model"], new["unet"], new_unet_state,
+                                   new_opt, state.it + 1)
+            return new_state, metrics
 
     return step
 

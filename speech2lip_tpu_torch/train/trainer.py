@@ -33,6 +33,7 @@ from speech2lip_tpu_torch import weights
 from speech2lip_tpu_torch.core.checkpoint import (CheckpointManager,
                                                   check_weights)
 from speech2lip_tpu_torch.core import checkpoint as ckpt
+from speech2lip_tpu_torch.core import spans
 from speech2lip_tpu_torch.core.metrics import MetricsWriter, setup_logger
 from speech2lip_tpu_torch.data.dataset import LipDataset, stack_batch
 from speech2lip_tpu_torch.data.windows import cached_warp_window
@@ -284,31 +285,41 @@ def batch_iterator(ds: LipDataset, batch_size: int, shuffle: bool,
     backend = prefetch_backend(ds, use_native)
     if backend is None:
         for i in range(0, len(order), batch_size):
-            yield stack_batch([ds.load_frame(int(j))
-                               for j in order[i:i + batch_size]])
+            with spans.span("build"):
+                samples = [ds.load_frame(int(j))
+                           for j in order[i:i + batch_size]]
+                with spans.span("build.stack"):
+                    batch = stack_batch(samples)
+            yield batch
         return
     prefetcher = _prefetcher(ds, backend)
     try:
         prefetcher.start_epoch([int(i) for i in order])
         for i in range(0, len(order), batch_size):
-            samples = []
-            for j in order[i:i + batch_size]:
-                idx, (rgb, face_ori, coord) = prefetcher.pop()
-                assert idx == int(j), (idx, j)
-                s = ds.load_frame_light(idx)
-                s.update({"rgb": rgb, "rgb_face_ori": face_ori,
-                          "coord": coord})
-                s.update(ds.blackaug_statics(coord))
-                samples.append(s)
-            yield stack_batch(samples)
+            with spans.span("build"):
+                samples = []
+                for j in order[i:i + batch_size]:
+                    with spans.span("build.read"):
+                        idx, (rgb, face_ori, coord) = prefetcher.pop()
+                    assert idx == int(j), (idx, j)
+                    s = ds.load_frame_light(idx)
+                    s.update({"rgb": rgb, "rgb_face_ori": face_ori,
+                              "coord": coord})
+                    with spans.span("build.warp"):
+                        s.update(ds.blackaug_statics(coord))
+                    samples.append(s)
+                with spans.span("build.stack"):
+                    batch = stack_batch(samples)
+            yield batch
     finally:
         prefetcher.close()
 
 
 def to_device(host_batch: Dict[str, np.ndarray], device
               ) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in host_batch.items()}
+    with spans.span("build.copy"):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                for k, v in host_batch.items()}
 
 
 # -- validation --------------------------------------------------------------
