@@ -21,7 +21,9 @@ The spans, by root:
   audio encoder, the frame features, the uv embedding and the lip MLP),
   ``render.composite`` (the paste and blend with the windowed warp) and
   ``render.unet`` (the post-fusion U-Net; on the static scene also the
-  crop and the paste into the static face).
+  crop and the paste into the static face).  On a batch that replays the
+  renderer's CUDA graphs (``infer.graphs``) each child holds its stage's
+  replay, and the root the input copies and the output copies.
 - ``build``: one batch's host assembly in ``train.trainer.batch_iterator``;
   children ``build.read`` (a frame's lip JPEG, face JPEG and coord grid,
   or the wait for them from the prefetcher), ``build.warp`` (the two

@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from speech2lip_tpu_torch.core import spans
+from speech2lip_tpu_torch.infer import graphs
 from speech2lip_tpu_torch.models import talking_face as tf
 from speech2lip_tpu_torch.models import unet_light
 from speech2lip_tpu_torch.ops import nn as tnn
@@ -59,21 +60,24 @@ def render_face_batch(params, unet_params, unet_state, batch: Dict[str, Any],
                       *, lip_x: int, lip_y: int, lip_h: int, lip_w: int,
                       expand_divisor: int = 5, use_kernels: bool = False,
                       compute_dtype=torch.float32,
-                      window: Optional[tuple] = None) -> Dict[str, Any]:
+                      window: Optional[tuple] = None,
+                      stage=spans.span) -> Dict[str, Any]:
     """Full inference step for a batch of frames.
 
     batch: audio [B,16,29], index [B], rgb_face_zero / rgb_face_ori /
     mask_lip_canonical [B,H,W,3], coord [B,H,W,2], all tensors on one
     device.  ``window``: optional static (y0, x0, h, w) observed-space crop
     validated (data.windows.compute_warp_window) to hold every warped-lip
-    pixel.  Returns {'lip': [B,lh,lw,3], 'face': [B,H,W,3]} float32.
+    pixel.  ``stage(name)``: the context each of the three stages runs in,
+    its span, or the capture of its CUDA graph (``infer.graphs``).
+    Returns {'lip': [B,lh,lw,3], 'face': [B,H,W,3]} float32.
     """
-    with spans.span("render.lip"):
+    with stage("render.lip"):
         rgb_lip = render_lip_batch(params, batch["audio"],
                                    batch["index"].float(), lip_h, lip_w,
                                    use_kernels=use_kernels,
                                    compute_dtype=compute_dtype)
-    with spans.span("render.composite"):
+    with stage("render.composite"):
         cast = lambda x: x.to(compute_dtype)
         unet_in, _, _ = tf.post_fusion_composite(
             cast(rgb_lip), cast(batch["rgb_face_zero"]),
@@ -82,7 +86,7 @@ def render_face_batch(params, unet_params, unet_state, batch: Dict[str, Any],
             expand_divisor=expand_divisor, window=window,
             use_kernels=use_kernels)
         unet_in = unet_in.to(compute_dtype)
-    with spans.span("render.unet"):
+    with stage("render.unet"):
         if use_kernels:
             face = unet_light.apply_infer_fused(unet_params, unet_state,
                                                 unet_in)
@@ -119,8 +123,10 @@ class Renderer:
     Runs on the card unless ``device`` names another.  Casts the float32
     parameters to ``model.compute_dtype`` once.  On a CUDA device every
     batch runs through the kernels K1-K3 and a kernel that fails raises:
-    there is no fallback.  On the CPU the kernel wrappers run their plain
-    versions.
+    there is no fallback; from the second consecutive batch of one shape
+    on, the three stages replay CUDA graphs (``infer.graphs``), and the
+    returned tensors are the caller's.  On the CPU the kernel wrappers run
+    their plain versions.
     """
 
     def __init__(self, cfg: Dict[str, Any], params, unet_params, unet_state,
@@ -137,12 +143,26 @@ class Renderer:
         self.device = resolve_device(device)
         self.params = tuple(cast_tree(t, self.device, self.compute_dtype)
                             for t in (params, unet_params, unet_state))
+        # each input's static buffer holds it in the dtype the batch's
+        # first op casts it to (None: as given)
+        cdt = self.compute_dtype
+        self.staged = {"audio": None, "index": None, "rgb_face_zero": cdt,
+                       "rgb_face_ori": cdt, "mask_lip_canonical": cdt,
+                       "coord": torch.float32}
+        self.graphs = graphs.StageGraphs(self.device)
 
     def __call__(self, batch: Dict[str, Any], lip_x: int, lip_y: int):
         p, up, us = self.params
-        with spans.span("render"), torch.no_grad():
+        lip_x, lip_y = int(lip_x), int(lip_y)
+        x = {k: batch[k] for k in self.staged}
+
+        def body(stage, b):
             return render_face_batch(
-                p, up, us, batch, lip_x=int(lip_x), lip_y=int(lip_y),
-                lip_h=self.lip_h, lip_w=self.lip_w,
-                expand_divisor=self.expand_divisor, use_kernels=True,
-                compute_dtype=self.compute_dtype, window=self.window)
+                p, up, us, b, lip_x=lip_x, lip_y=lip_y, lip_h=self.lip_h,
+                lip_w=self.lip_w, expand_divisor=self.expand_divisor,
+                use_kernels=True, compute_dtype=self.compute_dtype,
+                window=self.window, stage=stage)
+
+        with spans.span("render"), torch.no_grad():
+            return self.graphs(graphs.input_key(x, lip_x, lip_y), x,
+                               self.staged, body)

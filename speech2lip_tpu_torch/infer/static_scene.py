@@ -26,6 +26,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from speech2lip_tpu_torch.core import spans
+from speech2lip_tpu_torch.infer import graphs
 from speech2lip_tpu_torch.infer.renderer import (_DTYPES, cast_tree,
                                                  render_lip_batch,
                                                  resolve_device)
@@ -115,6 +116,9 @@ class StaticSceneRenderer:
     runs the full frame.
     """
 
+    # the inputs' static buffers: float32, as ``_composite`` reads them
+    STAGED = {"audio": torch.float32, "t_indices": torch.float32}
+
     def __init__(self, cfg: Dict[str, Any], params, unet_params, unet_state,
                  base: Dict[str, Any], window: Tuple[int, int, int, int],
                  lip_x: int, lip_y: int, device=None,
@@ -150,16 +154,18 @@ class StaticSceneRenderer:
         with torch.no_grad():
             self.static_face = _apply_unet(self.unet_params, self.unet_state,
                                            self.scene[1], self.use_kernels)
+        self.graphs = graphs.StageGraphs(self.device)
 
-    def _composite(self, audio, t_indices, use_kernels: bool):
+    def _composite(self, audio, t_indices, use_kernels: bool,
+                   stage=spans.span):
         audio = torch.as_tensor(audio).to(self.device, torch.float32)
         t = torch.as_tensor(t_indices).to(self.device, torch.float32)
         b = audio.shape[0]
-        with spans.span("render.lip"):
+        with stage("render.lip"):
             rgb_lip = render_lip_batch(self.params, audio, t, self.lip_h,
                                        self.lip_w, use_kernels=use_kernels,
                                        compute_dtype=self.compute_dtype)
-        with spans.span("render.composite"):
+        with stage("render.composite"):
             fz, gt, mask = (x.expand(b, *x.shape[1:]) for x in self.scene)
             unet_in, _, _ = tf.post_fusion_composite(
                 rgb_lip.to(self.compute_dtype), fz, gt, mask,
@@ -187,14 +193,25 @@ class StaticSceneRenderer:
 
     def __call__(self, audio, t_indices):
         """audio [B, 16, 29], t_indices [B] -> faces [B, H, W, 3] float32:
-        the U-Net on the crop, its interior pasted into ``static_face``."""
+        the U-Net on the crop, its interior pasted into ``static_face``.
+        On a CUDA device the stages replay CUDA graphs from the second
+        consecutive batch of one shape on (``infer.graphs``); the faces
+        returned are the caller's."""
+        x = {"audio": torch.as_tensor(audio),
+             "t_indices": torch.as_tensor(t_indices)}
         with spans.span("render"), torch.no_grad():
-            unet_in = self._composite(audio, t_indices, self.use_kernels)
-            with spans.span("render.unet"):
-                return self._render(
-                    unet_in, lambda x: _apply_unet(
-                        self.unet_params, self.unet_state, x,
-                        self.use_kernels), self.static_face)
+            return self.graphs(graphs.input_key(x), x, self.STAGED,
+                               self._batch)["face"]
+
+    def _batch(self, stage, x):
+        """The kernel path's batch, each stage in ``stage(name)``."""
+        unet_in = self._composite(x["audio"], x["t_indices"],
+                                  self.use_kernels, stage)
+        with stage("render.unet"):
+            return {"face": self._render(
+                unet_in, lambda u: _apply_unet(
+                    self.unet_params, self.unet_state, u, self.use_kernels),
+                self.static_face)}
 
     def render_plain(self, audio, t_indices):
         """The kernel path's batch computed with no kernel, on this

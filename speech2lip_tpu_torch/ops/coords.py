@@ -8,12 +8,13 @@ import torch
 def _linspace01(num: int, dtype, device=None) -> torch.Tensor:
     """``jnp.linspace(0, 1, num, dtype=dtype)`` rounded the way JAX rounds
     it: step = iota / (num - 1) in ``dtype``, then the exact endpoint.
-    (``torch.linspace`` rounds differently in bf16.)"""
+    (``torch.linspace`` rounds differently in bf16.)  Made on the device
+    with no copy from the host, so a CUDA graph can capture it."""
     if num == 1:
         return torch.zeros(1, dtype=dtype, device=device)
     div = num - 1
     step = (torch.arange(div, dtype=torch.float32, device=device).to(dtype)
-            / torch.tensor(div, dtype=dtype, device=device))
+            / torch.full((), div, dtype=dtype, device=device))
     one = torch.ones(1, dtype=dtype, device=device)
     return torch.cat([step, one])
 

@@ -1043,3 +1043,158 @@ def test_static_renderer_kernel_path_matches_render_plain(cuda, dtype):
     torch.cuda.synchronize()
     assert (kmlp.launches, kws.launches, kfb.launches) == (1, 1, 5)
     assert _rel_err(got, r.render_plain(batch["audio"], t)) < BOUND[dtype]
+
+
+def _may_serving(cuda, bsz=4):
+    """May's geometry at the model's published widths (500^2 face, 120x80
+    lip crop, the default MLP and U-Net) in bfloat16: a synthetic batch of
+    ``bsz`` frames on the card and a warp window that holds its lip."""
+    from speech2lip_tpu_torch.config import default_config
+    from speech2lip_tpu_torch.data.synthetic import synthetic_batch
+    from speech2lip_tpu_torch.data.windows import compute_warp_window
+
+    cfg = default_config()
+    cfg["model"]["canonical_depth_height"] = 500
+    cfg["model"]["canonical_depth_width"] = 500
+    cfg["model"]["compute_dtype"] = "bfloat16"
+    cfg["data"]["height"], cfg["data"]["width"] = 80, 120
+    raw, geo = synthetic_batch(bsz, face=500, lip_h=80, lip_w=120, seed=7)
+    box = ttf.expanded_lip_box(80, 120, geo["lip_x"], geo["lip_y"])
+    geo["window"] = compute_warp_window([raw["coord"][i] for i in
+                                         range(bsz)], box, 500, 500,
+                                        margin=16)
+    keys = ("audio", "index", "rgb_face_zero", "rgb_face_ori",
+            "mask_lip_canonical", "coord")
+    batch = {k: torch.from_numpy(raw[k]).to(cuda) for k in keys}
+    return cfg, geo, batch
+
+
+def _variant(batch, k):
+    """The k-th batch of a stream: the frames rolled by k, new audio."""
+    out = {key: v.roll(k, 0) for key, v in batch.items()}
+    out["audio"] = out["audio"] + 0.25 * k
+    return out
+
+
+def _graph_counts():
+    from speech2lip_tpu_torch.infer import graphs
+    return (graphs.replays, kmlp.launches, kws.launches, kfb.launches)
+
+
+def _delta(before):
+    return tuple(b - a for a, b in zip(before, _graph_counts()))
+
+
+def test_renderer_replays_its_stages_bit_for_bit(cuda):
+    """Renderer at May's widths: the second batch of a shape captures the
+    three stage graphs, later ones replay; every replayed batch equals the
+    eager path on the same inputs bit for bit, face and lip (the same
+    kernels, and the outc GEMM, on the same values); a returned batch is
+    not overwritten by the next replays; another batch size runs eagerly,
+    right, and keeps the graphs; each replay counts one batch and the
+    kernels' launches of one (K1/K2/K3 1/1/5)."""
+    from speech2lip_tpu_torch.infer import graphs
+    from speech2lip_tpu_torch.infer.renderer import (Renderer,
+                                                     render_face_batch)
+
+    cfg, geo, batch = _may_serving(cuda)
+    lx, ly = geo["lip_x"], geo["lip_y"]
+    r = Renderer(cfg, *weights.random_params(4, cfg=cfg), device=cuda,
+                 window=geo["window"])
+    p, up, us = r.params
+
+    def eager(b):
+        with torch.no_grad():
+            return render_face_batch(
+                p, up, us, b, lip_x=lx, lip_y=ly, lip_h=80, lip_w=120,
+                expand_divisor=r.expand_divisor, use_kernels=True,
+                compute_dtype=r.compute_dtype, window=r.window)
+
+    stream = [_variant(batch, k) for k in range(5)]
+    caps = graphs.captures
+    before = _graph_counts()
+    outs = [r(b, lx, ly) for b in stream[:2]]       # eager, capture
+    assert graphs.captures == caps + 1
+    assert [n for n, _, _ in r.graphs._graphs] == [
+        "render.lip", "render.composite", "render.unet"]
+    torch.cuda.synchronize()
+    assert _delta(before) == (1, 2, 2, 10)
+    kept = [{k: v.clone() for k, v in o.items()} for o in outs]
+    before = _graph_counts()
+    outs += [r(b, lx, ly) for b in stream[2:]]      # three replays
+    torch.cuda.synchronize()
+    assert _delta(before) == (3, 3, 3, 15)
+    for o, k in zip(outs, kept):
+        for key in ("lip", "face"):
+            assert torch.equal(o[key], k[key])
+    assert not torch.equal(outs[3]["face"], outs[4]["face"])
+    for o, b in zip(outs, stream):
+        want = eager(b)
+        for key in ("lip", "face"):
+            assert torch.equal(o[key], want[key]), key
+    held = r.graphs.held
+    short = {k: v[:3] for k, v in stream[1].items()}
+    before = _graph_counts()
+    got = r(short, lx, ly)
+    torch.cuda.synchronize()
+    assert _delta(before) == (0, 1, 1, 5) and r.graphs.held == held
+    want = eager(short)
+    for key in ("lip", "face"):
+        assert torch.equal(got[key], want[key])
+    before = _graph_counts()
+    again = r(stream[0], lx, ly)
+    torch.cuda.synchronize()
+    assert _delta(before) == (1, 1, 1, 5)
+    assert torch.equal(again["face"], outs[0]["face"])
+
+
+def test_static_renderer_replays_its_stages_bit_for_bit(cuda):
+    """StaticSceneRenderer at May's widths (the U-Net on the warp window's
+    crop, pasted into the static face), as the Renderer's test: replays
+    equal the eager path bit for bit, returned faces stay, another batch
+    size runs eagerly and keeps the graphs, the counters count."""
+    from speech2lip_tpu_torch.core import spans
+    from speech2lip_tpu_torch.infer import graphs
+    from speech2lip_tpu_torch.infer.static_scene import StaticSceneRenderer
+
+    cfg, geo, batch = _may_serving(cuda)
+    base = {k: batch[k][0] for k in ("rgb_face_zero", "rgb_face_ori",
+                                     "mask_lip_canonical", "coord")}
+    r = StaticSceneRenderer(cfg, *weights.random_params(5, cfg=cfg), base,
+                            geo["window"], geo["lip_x"], geo["lip_y"],
+                            device=cuda)
+    assert r.geo is not None
+
+    def eager(a, t):
+        with torch.no_grad():
+            return r._batch(spans.span, {"audio": a,
+                                         "t_indices": t.float()})["face"]
+
+    stream = [(batch["audio"] + 0.25 * k,
+               torch.arange(k, k + 4, device=cuda)) for k in range(5)]
+    caps = graphs.captures
+    before = _graph_counts()
+    outs = [r(a, t) for a, t in stream[:2]]
+    assert graphs.captures == caps + 1 and len(r.graphs._graphs) == 3
+    torch.cuda.synchronize()
+    assert _delta(before) == (1, 2, 2, 10)
+    kept = [o.clone() for o in outs]
+    before = _graph_counts()
+    outs += [r(a, t) for a, t in stream[2:]]
+    torch.cuda.synchronize()
+    assert _delta(before) == (3, 3, 3, 15)
+    for o, k in zip(outs, kept):
+        assert torch.equal(o, k)
+    assert not torch.equal(outs[3], outs[4])
+    for o, (a, t) in zip(outs, stream):
+        assert torch.equal(o, eager(a, t))
+    held = r.graphs.held
+    before = _graph_counts()
+    got = r(stream[1][0][:3], stream[1][1][:3])
+    torch.cuda.synchronize()
+    assert _delta(before) == (0, 1, 1, 5) and r.graphs.held == held
+    assert torch.equal(got, eager(stream[1][0][:3], stream[1][1][:3]))
+    before = _graph_counts()
+    assert torch.equal(r(*stream[0]), outs[0])
+    torch.cuda.synchronize()
+    assert _delta(before) == (1, 1, 1, 5)
