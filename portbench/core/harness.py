@@ -40,6 +40,15 @@ def read_counters(modules) -> Dict[str, int]:
     return out
 
 
+def device_window(cell: Cell, device) -> bool:
+    """Whether a run of the cell records the device's activity over its
+    window even untraced: on the card, where one of the cell's end-to-end
+    metrics is read from the device trace (its ``source`` is
+    ``device_trace``; its reader is ``metrics/<name>.py``)."""
+    return device.type == "cuda" and any(
+        m["source"] == "device_trace" for m in cell.end_to_end)
+
+
 def untraced(name: str):
     """The harness's span outside a traced run: nothing."""
     return contextlib.nullcontext()
@@ -57,7 +66,10 @@ def _run(cell: Cell, seed: int, seconds: float, trace: bool, device,
          t_start: float) -> Dict[str, Any]:
     import torch
     mod = importlib.import_module(f"portbench.drivers.{cell.traffic['driver']}")
-    rec = T.Recorder(device) if trace else None
+    # a traced run reads the per-layer metrics; an untraced one its
+    # end-to-end metrics, those of the device trace by their readers
+    recorded = trace or device_window(cell, device)
+    rec = T.Recorder(device) if recorded else None
     sess = mod.Session(cell, seed, device, rec or untraced)
     D.log(f"setup start, imports and device: "
           f"{time.perf_counter() - t_start:.3f} s")
@@ -70,10 +82,12 @@ def _run(cell: Cell, seed: int, seconds: float, trace: bool, device,
     setup_s = time.perf_counter() - t_start
 
     prof = None
+    wanted = (cell.per_layer if trace else
+              [m for m in cell.end_to_end if m["source"] == "device_trace"])
     readers = ({m["name"]: metric_module(m["name"], cell.root)
-                for m in cell.per_layer} if trace else {})
+                for m in wanted} if recorded else {})
     counted = read_counters(readers.values())
-    if trace:
+    if recorded:
         from torch.profiler import ProfilerActivity, profile
         prof = profile(activities=[ProfilerActivity.CUDA if cuda
                                    else ProfilerActivity.CPU])
@@ -90,16 +104,22 @@ def _run(cell: Cell, seed: int, seconds: float, trace: bool, device,
 
     tr = T.from_profiler(prof, rec) if prof is not None else None
     metrics: Dict[str, Dict[str, Any]] = {}
-    if not trace:
-        e2e = dict(sess.end_to_end(), setup_s=setup_s)
-        for m in cell.end_to_end:
-            if m["name"] in e2e:
-                metrics[m["name"]] = {"value": e2e[m["name"]],
-                                      "unit": m["unit"]}
-    else:
+    ctx: Dict[str, Any] = {}
+    if recorded:
         ctx = sess.context()
         ctx.update(trace=tr, window_peak_bytes=window_peak, cell=cell.name,
                    counters=counters)
+    if not trace:
+        e2e = dict(sess.end_to_end(), setup_s=setup_s)
+        for k, v in e2e.items():
+            D.log(f"window {k} {v:.6g}")
+        for m in cell.end_to_end:
+            v = e2e.get(m["name"])
+            if v is None and m["name"] in readers:
+                v = readers[m["name"]].read(ctx)
+            if v is not None and math.isfinite(v):
+                metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
+    else:
         for m in cell.per_layer:
             v = readers[m["name"]].read(ctx)
             if v is not None and math.isfinite(v):
@@ -113,9 +133,10 @@ def _run(cell: Cell, seed: int, seconds: float, trace: bool, device,
         "attempted": int(sess.attempted()),
         "failed": 0,
         "metrics": metrics,
-        "device": D.describe(device, cell.chips, peak, tr),
+        "device": D.describe(device, cell.chips, peak,
+                             tr if trace else None),
     }
-    if tr is not None:
+    if trace and tr is not None:
         out["breakdown"] = {"device_ops": tr.top_ops(),
                             "idle_gaps": tr.idle_gaps()}
     out["checks"] = checks

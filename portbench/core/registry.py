@@ -10,10 +10,20 @@ its own under ``portbench/``, found by that name:
   driver (its ``driver`` key: a module of ``portbench/drivers``) reads;
 - ``limits/<cell>.json``: the limit of each number ``correct`` compares;
 - ``metrics/<metric>.py``: a per-layer metric's reader, ``read(ctx)``,
-  and the program's counter it reads, if any (``COUNTER``).
+  and the program's counter it reads, if any (``COUNTER``); also the
+  reader of an end-to-end metric whose ``source`` is ``device_trace``;
+- the configuration's ``reference`` key: the plain reference module that
+  its cells are checked against, a path from the checkout's root
+  (``reference_module``).
 
 A later cell, configuration or metric is new files and entries, never an
-edit of a file here.
+edit of a file here.  A training configuration also states its stage: its
+``start_iter`` (the iteration its statics are built at, 0 where absent:
+past ``sync_start_iter`` the sync loss is on, past
+``postnet_freeze_iter`` the U-Net frozen), its ``weights`` draw
+(``traffic/weights.py``: ``init`` where absent, ``served`` for a trained
+model) and its ``reference`` module (``reference/train.py`` says what such
+a module provides).
 """
 
 from __future__ import annotations
@@ -65,12 +75,22 @@ def _for_cell(metrics: List[Dict[str, Any]], cell: str):
     return [m for m in metrics if cell in m.get("workloads", [cell])]
 
 
-def metric_module(name: str, root: Path = ROOT):
-    """``portbench/metrics/<name>.py``: its ``read(ctx)`` and, where the
-    metric reads one of the program's counters, ``COUNTER``."""
-    path = root / "portbench" / "metrics" / f"{name}.py"
+def _load(path: Path, name: str):
     spec = importlib.util.spec_from_file_location(
-        "portbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
+        name.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def metric_module(name: str, root: Path = ROOT):
+    """``portbench/metrics/<name>.py``: its ``read(ctx)`` and, where the
+    metric reads one of the program's counters, ``COUNTER``."""
+    return _load(root / "portbench" / "metrics" / f"{name}.py",
+                 "portbench_metric_" + name)
+
+
+def reference_module(path: str, root: Path = ROOT):
+    """The reference module at ``path`` (from the checkout's root, as a
+    configuration's ``reference`` key names it)."""
+    return _load(root / path, "portbench_reference_" + Path(path).stem)

@@ -28,6 +28,28 @@ MLP_WIDTH, MLP_DEPTH, MLP_SKIP, UV_DIM, OUT_CH = 256, 8, 4, 42, 3
 ALEX = [(64, 11, 4, 2), (192, 5, 1, 2), (384, 3, 1, 1), (256, 3, 1, 1),
         (256, 3, 1, 1)]
 
+# SyncNet (models/syncnet): (cout, (kh, kw), (sh, sw), pad) of each conv;
+# the face encoder reads [48, 96, 15] (the lower half of five stacked 96 x
+# 96 crops), the audio encoder a mel window [80, 16, 1]
+SYNC_FACE = [(32, (7, 7), (1, 1), 3), (64, (5, 5), (1, 2), 1),
+             (64, (3, 3), (1, 1), 1), (64, (3, 3), (1, 1), 1),
+             (128, (3, 3), (2, 2), 1), (128, (3, 3), (1, 1), 1),
+             (128, (3, 3), (1, 1), 1), (128, (3, 3), (1, 1), 1),
+             (256, (3, 3), (2, 2), 1), (256, (3, 3), (1, 1), 1),
+             (256, (3, 3), (1, 1), 1), (512, (3, 3), (2, 2), 1),
+             (512, (3, 3), (1, 1), 1), (512, (3, 3), (1, 1), 1),
+             (512, (3, 3), (2, 2), 1), (512, (3, 3), (1, 1), 0),
+             (512, (1, 1), (1, 1), 0)]
+SYNC_AUDIO = [(32, (3, 3), (1, 1), 1), (32, (3, 3), (1, 1), 1),
+              (32, (3, 3), (1, 1), 1), (64, (3, 3), (3, 1), 1),
+              (64, (3, 3), (1, 1), 1), (64, (3, 3), (1, 1), 1),
+              (128, (3, 3), (3, 3), 1), (128, (3, 3), (1, 1), 1),
+              (128, (3, 3), (1, 1), 1), (256, (3, 3), (3, 2), 1),
+              (256, (3, 3), (1, 1), 1), (256, (3, 3), (1, 1), 1),
+              (512, (3, 3), (1, 1), 0), (512, (1, 1), (1, 1), 0)]
+SYNC_FACE_IN, SYNC_AUDIO_IN = (48, 96, 15), (80, 16, 1)
+SYNC_T = 5  # the window's frames
+
 
 def bound_s(ops: float, moved: float, peak: str) -> Tuple[float, str]:
     """(least seconds, what bounds it) of ``ops`` operations at the
@@ -147,6 +169,13 @@ def depth_warp_ops(h: int, w: int) -> float:
     return 75.0 * h * w
 
 
+def ensemble_render_ops(lip_h: int, lip_w: int, ensemble: int = 4) -> float:
+    """The lip MLP's forward over the ensemble's shifted rows of one
+    frame's crop (entry projections, trunk and head a row)."""
+    rows = ensemble * lip_h * lip_w
+    return rows * (2.0 * 2 * UV_DIM * MLP_WIDTH + mlp_row_ops())
+
+
 def train_iter_ops(lip_h: int, lip_w: int, face_h: int, face_w: int,
                    frames: int, ensemble: int = 4) -> float:
     """Model operations of one stage-1 training iteration of ``frames``
@@ -154,8 +183,7 @@ def train_iter_ops(lip_h: int, lip_w: int, face_h: int, face_w: int,
     ensemble's rows, the U-Net, the canonical depth's warp), plus the
     frozen LPIPS forward on both images of each of its two terms (lip and
     face) and its backward to the rendered input (one forward's worth)."""
-    rows = ensemble * lip_h * lip_w
-    mlp = rows * (2.0 * 2 * UV_DIM * MLP_WIDTH + mlp_row_ops())
+    mlp = ensemble_render_ops(lip_h, lip_w, ensemble)
     trained = frames * (mlp + unet_ops(face_h, face_w)
                         + depth_warp_ops(face_h, face_w))
     lpips = 3.0 * frames * (alexnet_ops(lip_h, lip_w)
@@ -163,9 +191,48 @@ def train_iter_ops(lip_h: int, lip_w: int, face_h: int, face_w: int,
     return 3.0 * trained + lpips
 
 
+def conv_stack_ops(spec, size) -> float:
+    """The convs of ``spec`` over one input of ``size`` (h, w, c)."""
+    h, w, c = size
+    total = 0.0
+    for cout, (kh, kw), (sh, sw), p in spec:
+        h, w = (h + 2 * p - kh) // sh + 1, (w + 2 * p - kw) // sw + 1
+        total += 2.0 * h * w * kh * kw * c * cout
+        c = cout
+    return total
+
+
+def syncnet_face_ops() -> float:
+    return conv_stack_ops(SYNC_FACE, SYNC_FACE_IN)
+
+
+def syncnet_audio_ops() -> float:
+    return conv_stack_ops(SYNC_AUDIO, SYNC_AUDIO_IN)
+
+
+def sync_iter_ops(lip_h: int, lip_w: int, face_h: int, face_w: int,
+                  frames: int, ensemble: int = 4, window: int = SYNC_T
+                  ) -> float:
+    """Model operations of one sync-stage iteration of ``frames`` frames
+    (sync loss on, U-Net frozen): stage 1's, with the U-Net frozen on the
+    gradient path (2x its forward: the forward and the backward to its
+    input, not 3x), plus the sync loss's ``window`` frames a frame, each an
+    ensemble lip render (3x) and a frozen U-Net pass (2x), and SyncNet
+    frozen: the face encoder on the rendered window with its backward to
+    the input (2x) and on the negative window (1x), the audio encoder on
+    the mel window twice (1x each)."""
+    unet = unet_ops(face_h, face_w)
+    stage1 = train_iter_ops(lip_h, lip_w, face_h, face_w, frames, ensemble)
+    renders = frames * window * (
+        3.0 * ensemble_render_ops(lip_h, lip_w, ensemble) + 2.0 * unet)
+    sync = frames * (3.0 * syncnet_face_ops() + 2.0 * syncnet_audio_ops())
+    return stage1 - frames * unet + renders + sync
+
+
 def summary() -> Dict[str, float]:
     """The frozen counts at May geometry (tests hold them)."""
     return {"unet_conv_gflop_500": unet_conv_ops(500, 500) / 1e9,
             "fused_mlp_gflop_frame": fused_mlp_ops(9600, 1) / 1e9,
             "serve_gflop_frame": serve_frame_ops(80, 120, 500, 500, 1) / 1e9,
-            "train_gflop_iter": train_iter_ops(80, 120, 500, 500, 1) / 1e9}
+            "train_gflop_iter": train_iter_ops(80, 120, 500, 500, 1) / 1e9,
+            "sync_gflop_iter": sync_iter_ops(80, 120, 500, 500, 1) / 1e9}

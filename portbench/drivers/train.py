@@ -1,14 +1,19 @@
-"""The training driver: one identity's stage-1 fit, iteration by iteration,
-as ``train.trainer.fit`` runs it.
+"""The training driver: one identity's fit, iteration by iteration, as
+``train.trainer.fit`` runs it, in the stage its configuration states.
 
 Set-up reads the identity (``data.dataset.LipDataset``), builds the step's
-statics (``train.trainer.build_statics``), Adam (``train.train_step.
-make_optimizer``) and the step (``make_train_step``) on weights made from
-the seed, and drives that step through its first ``check_steps``
-iterations, which the reference follows.  The window then goes on with the
-same state.  An iteration is the batch build (``train.trainer.
-batch_iterator``, the loader ``fit`` picks for the configuration), the copy
-to the card (``to_device``), the step's draws and the step, synchronised.
+statics (``train.trainer.build_statics``) at the configuration's
+``start_iter`` (0 where absent), so the program's own rule decides whether
+the sync loss is on and the U-Net frozen, Adam (``train.train_step.
+make_optimizer``, its moments at zero) and the step (``make_train_step``)
+on weights made from the seed (the configuration's ``weights`` draw,
+``init`` where absent) with the frozen nets (LPIPS; SyncNet, on a stream of
+its own, when the sync loss is on), and drives that step through its first
+``check_steps`` iterations, which the configuration's ``reference`` module
+follows.  The window then goes on with the same state.  An iteration is the
+batch build (``train.trainer.batch_iterator``, the loader ``fit`` picks for
+the configuration), the copy to the card (``to_device``), the step's draws
+and the step, synchronised.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import numpy as np
 import torch
 
 from portbench.core.device import Phases
+from portbench.core.registry import reference_module
 from portbench.counts import flops
 from portbench.reference import batch as refbatch
 from portbench.reference import train as reftrain
@@ -60,25 +66,32 @@ class Session:
         cfg["training"]["batch_size"] = int(self.tr["batch"])
         self.cfg = cfg
         self.ds = LipDataset(str(self.root), "train", cfg)
-        st = trainer.build_statics(cfg, self.ds, 0, dev)
+        start = int(self.cell.config.get("start_iter", 0))
+        st = trainer.build_statics(cfg, self.ds, start, dev)
         self.st = st
         ph("dataset and statics")
         wg = D.generator(self.seed, "weights", dev)
-        tf_l = W.talking_face_leaves(W.INIT)
-        up_l, us_l = W.unet_leaves(W.INIT)
+        draw = self.cell.config.get("weights", W.INIT)
+        tf_l = W.talking_face_leaves(draw)
+        up_l, us_l = W.unet_leaves(draw)
         params = W.make_tree(tf_l, wg, dev)
         # the canonical depth starts from the identity's depth (no holes)
         params["canonical_depth"] = torch.from_numpy(np.load(
             self.root / "depth_face_canonical.npy")).to(dev)
         up, us = W.make_tree(up_l, wg, dev), W.make_tree(us_l, wg, dev)
-        self.lpips = W.make_tree(W.lpips_leaves(), wg, dev)
-        self.init = (W.tree_map(torch.clone, params),
-                     W.tree_map(torch.clone, up))
+        self.frozen = {"lpips": W.make_tree(W.lpips_leaves(), wg, dev)}
+        if st.sync_on:
+            sg = D.generator(self.seed, "syncnet", dev)
+            self.frozen["syncnet"] = tuple(W.make_tree(l, sg, dev)
+                                           for l in W.syncnet_leaves())
+        self.init = tuple(W.tree_map(torch.clone, t) for t in (params, up, us))
         opt = ts.make_optimizer(cfg)
         self.b1 = opt.b1
         leaves = ts.tree_leaves({"model": params, "unet": up})
-        self.state = ts.TrainState(params, up, us, opt.init(leaves), 0)
-        self.step = ts.make_train_step(opt, st, {"lpips": self.lpips})
+        self.state = ts.TrainState(params, up, us, opt.init(leaves), start)
+        self.step = ts.make_train_step(opt, st, self.frozen)
+        self.ref = reference_module(self.cell.config["reference"],
+                                    self.cell.root)
         self.dgen = D.generator(self.seed, "draws", dev)
         self.order = D.rng(self.seed, "order")
         self.epoch = 0
@@ -88,9 +101,14 @@ class Session:
         self.checked: List[Dict[str, Any]] = []
         for k in range(int(self.tr["check_steps"])):
             host, dr, m = self._iteration(keep=True)
+            if st.sync_on and "loss_sync" not in m:
+                raise RuntimeError(
+                    "the configuration's stage has the sync loss on, but "
+                    "the step reported no loss_sync: it ran another stage")
             self.checked.append({"host": host, "draws": dr,
                                  "loss": float(m["loss"]),
-                                 "grad_norm": float(m["grad_norm"])})
+                                 "grad_norm": float(m["grad_norm"]),
+                                 "terms": sorted(m)})
             if k == 0:
                 self.after_first = self.state
         self.after_last = self.state
@@ -122,9 +140,10 @@ class Session:
             batch = self.trainer.to_device(host, self.dev)
         b = time.perf_counter()
         with self.span("step"):
-            dr = D.step_draws(self.dgen, int(batch["audio"].shape[0]),
-                              self.st.face_h, self.st.face_w, self.dev,
-                              self.st.use_blackaug)
+            rows = int(batch["audio"].shape[0])
+            dr = D.step_draws(self.dgen, rows, self.st.face_h,
+                              self.st.face_w, self.dev, self.st.use_blackaug,
+                              rows * self.st.sync_T if self.st.sync_on else 0)
             self.state, m = self.step(self.state, batch, dr)
             self._sync()
         c = time.perf_counter()
@@ -156,9 +175,10 @@ class Session:
     def context(self) -> Dict[str, Any]:
         b = int(self.tr["batch"])
         st = self.st
+        count = flops.sync_iter_ops if st.sync_on else flops.train_iter_ops
         return {"window_s": self.window_s, "iters": self.iters,
                 "spans": {"batch_build": self.t_build, "step": self.t_step},
-                "model_ops": self.iters * flops.train_iter_ops(
+                "model_ops": self.iters * count(
                     st.lip_h, st.lip_w, st.face_h, st.face_w, b),
                 "peak": "f32", "kernels": {}}
 
@@ -171,19 +191,18 @@ class Session:
     def _ref_batches(self):
         """The checked steps' batches as the reference reads them, and the
         largest gap to the loop's."""
-        ident = refbatch.Identity(str(self.root), self.cfg["data"])
+        read = self.ref.read_batches(
+            str(self.root), self.cfg,
+            [c["host"]["index"] for c in self.checked])
         out, gaps = [], []
-        for c in self.checked:
-            host = c["host"]
-            frames = [ident.frame(int(i)) for i in host["index"]]
-            rb = {k: np.stack([f[k] for f in frames]) for k in frames[0]}
-            gaps.append(refbatch.gap(host, rb))
+        for c, rb in zip(self.checked, read):
+            gaps.append(refbatch.gap(c["host"], rb))
             out.append({k: torch.from_numpy(np.ascontiguousarray(v))
                         .to(self.dev) for k, v in rb.items()})
         return out, max(gaps)
 
     def _follow(self, batches, precision: str):
-        return reftrain.steps(self.cfg, self.init, self.lpips, batches,
+        return self.ref.steps(self.cfg, self.init, self.frozen, batches,
                               [c["draws"] for c in self.checked], precision)
 
     def _gaps(self, got, ref) -> Dict[str, float]:

@@ -12,6 +12,17 @@ the head-minus-face mask).  Gradients by autograd, Adam (b1 0.9, b2 0.999,
 eps 1e-8, bias corrections rounded in float32).  The random draws of a step
 (the ensemble's shift, the two hole fields and the augmentation's coin) are
 inputs, as are the batch and the weights.
+
+A training configuration names its reference module (its ``reference``
+key); the training driver calls two functions of it:
+
+- ``read_batches(root, cfg, indices)``: the checked steps' batches read
+  from the identity's files at ``root``, one dict of numpy fields a step
+  (``indices``: each step's frame positions);
+- ``steps(cfg, weights, frozen, batches, draws, precision)``: the steps
+  followed from ``weights`` = (params, U-Net params, U-Net state) with the
+  frozen nets ``frozen`` ({"lpips": tree}, and "syncnet": (params, state)
+  when the stage has the sync loss), as ``steps`` below returns them.
 """
 
 from __future__ import annotations
@@ -22,6 +33,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
+from portbench.reference import batch as refbatch
 from portbench.reference import common as C
 from portbench.traffic.weights import tree_leaves, tree_paths
 
@@ -196,13 +208,24 @@ class Adam:
         return new, mu2, nu2, count
 
 
-def steps(cfg, weights, lpips_w, batches: List[Dict[str, torch.Tensor]],
+def read_batches(root: str, cfg, indices) -> List[Dict[str, np.ndarray]]:
+    """Each step's frames read by ``reference/batch.py``, stacked."""
+    ident = refbatch.Identity(root, cfg["data"])
+    out = []
+    for idx in indices:
+        frames = [ident.frame(int(i)) for i in idx]
+        out.append({k: np.stack([f[k] for f in frames]) for k in frames[0]})
+    return out
+
+
+def steps(cfg, weights, frozen, batches: List[Dict[str, torch.Tensor]],
           draws: List[Dict[str, Any]], precision: str = "f32"
           ) -> Dict[str, Any]:
-    """Follow ``len(batches)`` steps from ``weights`` = (params, unet
-    params): each step's loss and the global gradient norm, the first
-    step's gradient by leaf and the parameters after the last step, keyed
-    by path under ``model/`` and ``unet/``."""
+    """Follow ``len(batches)`` stage-1 steps from ``weights`` = (params,
+    unet params, unet state; the U-Net trains on batch statistics): each
+    step's loss and the global gradient norm, the first step's gradient by
+    leaf and the parameters after the last step, keyed by path under
+    ``model/`` and ``unet/``."""
     q = C.Precision(precision)
     tree = {"model": weights[0], "unet": weights[1]}
     paths = tree_paths(tree)
@@ -211,7 +234,7 @@ def steps(cfg, weights, lpips_w, batches: List[Dict[str, torch.Tensor]],
     nu = [torch.zeros_like(t) for t in leaves]
     count = 0
     opt = Adam(float(cfg["training"]["learning_rate"]))
-    lp = C.f32_tree(lpips_w)
+    lp = C.f32_tree(frozen["lpips"])
     out: Dict[str, Any] = {"loss": [], "grad_norm": []}
     n_model = len(tree_leaves(weights[0]))
     with C.no_tf32():

@@ -39,6 +39,23 @@ def test_serve_and_train_totals():
     assert 600 < s["train_gflop_iter"] < 700
 
 
+def test_sync_iteration_at_may_geometry():
+    """The sync stage's iteration: six ensemble lip renders (3x), six
+    frozen U-Net passes at 500 x 500 (2x), stage 1's depth warp and LPIPS,
+    and SyncNet (face encoder 3x, audio encoder 2x)."""
+    s = flops.summary()
+    assert s["sync_gflop_iter"] == pytest.approx(2766.03, abs=0.01)
+    assert flops.syncnet_face_ops() / 1e9 == pytest.approx(2.2238, abs=1e-4)
+    assert flops.syncnet_audio_ops() / 1e9 == pytest.approx(0.1968,
+                                                            abs=1e-4)
+    rows = 4 * 80 * 120
+    mlp = rows * (2.0 * 2 * flops.UV_DIM * flops.MLP_WIDTH
+                  + flops.mlp_row_ops())
+    window = 5 * (3 * mlp + 2 * flops.unet_ops(500, 500))
+    assert window / (s["sync_gflop_iter"] * 1e9) == pytest.approx(0.825,
+                                                                  abs=1e-3)
+
+
 def test_alexnet_on_a_frame():
     # 0.714 + 2.286 + 1.194 + 1.592 + 1.062 GFLOP (124^2, 61^2, 30^2 x3)
     assert flops.alexnet_ops(500, 500) / 1e9 == pytest.approx(6.849, abs=1e-3)

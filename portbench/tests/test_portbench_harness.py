@@ -1,7 +1,8 @@
-"""The harness: it finds every file by name, a new cell needs only new
-files and entries, its last line has the contract's keys, and it refuses to
-run without the card."""
+"""The harness: it finds every file by name, a new cell (serving, or
+training in another stage) needs only new files and entries, its last line
+has the contract's keys, and it refuses to run without the card."""
 
+import hashlib
 import json
 import shutil
 import subprocess
@@ -21,7 +22,7 @@ CELLS = [w["name"] for w in BENCH["workloads"]]
 def test_registry_finds_every_file_of_a_cell(name):
     c = registry.Cell(name, BENCH)
     assert c.config["name"] == c.entry["config"]
-    assert c.traffic["driver"] in ("serve", "train")
+    assert (registry.HERE / "drivers" / f"{c.traffic['driver']}.py").is_file()
     assert c.limits and all(v >= 0 for v in c.limits.values())
     assert c.end_to_end and c.per_layer
     assert "setup_s" in {m["name"] for m in c.end_to_end}
@@ -35,7 +36,8 @@ def test_every_config_and_metric_has_its_file():
     for m in BENCH["end_to_end"] + BENCH["per_layer"]:
         for w in m.get("workloads", []):
             assert w in CELLS
-    for m in BENCH["per_layer"]:
+    for m in BENCH["per_layer"] + [e for e in BENCH["end_to_end"]
+                                   if e["source"] == "device_trace"]:
         assert (registry.HERE / "metrics" / f"{m['name']}.py").is_file()
 
 
@@ -75,9 +77,43 @@ def test_training_last_line_schema(trace, tmp_path):
     _check_line(out, trace)
     names = set(out["metrics"])
     if trace:
-        assert {"batch_build_ms", "step_ms", "mfu.train"} <= names
+        assert {"batch_build_ms", "step_ms", "mfu.train",
+                "iter_ms.train"} <= names
     else:
-        assert names == {"iter_ms", "setup_s"}
+        # the CPU records no device trace: the host clock's metrics alone
+        assert names == {m["name"] for m in c.end_to_end
+                         if m["source"] == "host_clock"} == {"setup_s"}
+
+
+def _busy_ms(monkeypatch, ms=1.0):
+    """An untraced run on the CPU records its window as on the card, and
+    its trace reads ``ms`` of device activity."""
+    from portbench.core import trace as T
+    real = T.from_profiler
+
+    def busy(prof, rec):
+        tr = real(prof, rec)
+        tr.union = [(tr.window[0], tr.window[0] + 1e3 * ms)]
+        return tr
+    monkeypatch.setattr(harness, "device_window", lambda cell, dev: True)
+    monkeypatch.setattr(T, "from_profiler", busy)
+
+
+def test_an_end_to_end_metric_of_the_device_trace(monkeypatch, tmp_path):
+    """``iter_device_ms`` is read from the window's device trace in an
+    untraced run: the busy time over the window's iterations, beside the
+    host clock's metrics, and no per-layer metric or breakdown."""
+    c = small.cell("train.stage1-b1")
+    c.build_dir = tmp_path
+    assert [m["name"] for m in c.end_to_end
+            if m["source"] == "device_trace"] == ["iter_device_ms"]
+    _busy_ms(monkeypatch, 6.0)
+    out = harness.run(c, 2 ** 31 + 31, 0.3, False, small.CPU, 0.0)
+    _check_line(out, False)
+    assert set(out["metrics"]) == {"iter_device_ms", "setup_s"}
+    assert out["metrics"]["iter_device_ms"]["value"] == pytest.approx(
+        6.0 / out["attempted"])
+    assert "breakdown" not in out and "busy_s" not in out["device"]
 
 
 def test_device_ms_is_busy_time_per_iteration():
@@ -87,6 +123,23 @@ def test_device_ms_is_busy_time_per_iteration():
         busy_s = 3.0
     assert mod.read({"trace": Busy(), "iters": 20}) == 150.0
     assert mod.read({"trace": None, "iters": 20}) is None
+
+
+def test_host_iteration_is_the_window_over_its_iterations():
+    mod = registry.metric_module("iter_ms.train")
+    assert mod.read({"window_s": 30.0, "iters": 60}) == 500.0
+    assert mod.read({"window_s": 30.0, "iters": 0}) is None
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_only_a_device_metric_records_an_untraced_window(name):
+    """An untraced run records the device's activity only on the card and
+    only for a cell with an end-to-end metric of the device trace."""
+    c = registry.Cell(name, BENCH)
+    device = any(m["source"] == "device_trace" for m in c.end_to_end)
+    assert harness.device_window(c, torch.device("cuda", 0)) is device
+    assert harness.device_window(c, small.CPU) is False
+    assert device is name.startswith("train")
 
 
 def test_a_new_cell_is_new_files_and_entries(tmp_path):
@@ -122,6 +175,125 @@ def test_a_new_cell_is_new_files_and_entries(tmp_path):
     assert out["metrics"]["frames.dummy"]["value"] > 0
     out = harness.run(c, 5, 0.2, False, small.CPU, 0.0)
     assert set(out["metrics"]) == {"frames_per_s", "setup_s"}
+
+
+# A stand-in for a sync-stage reference, written into the temporary
+# checkout: it reads the batches and follows the steps through the program.
+STANDIN = '''
+import numpy as np
+from portbench.traffic.weights import tree_leaves, tree_paths
+from speech2lip_tpu_torch.data.dataset import LipDataset, stack_batch
+from speech2lip_tpu_torch.train import train_step as ts, trainer
+
+
+def read_batches(root, cfg, indices):
+    ds = LipDataset(root, "train", cfg)
+    return [stack_batch([ds.load_frame(int(i)) for i in idx])
+            for idx in indices]
+
+
+def steps(cfg, weights, frozen, batches, draws, precision="f32"):
+    tr = cfg["training"]
+    ds = LipDataset(cfg["data"]["path"], "train", cfg)
+    start = max(tr["sync_start_iter"], tr["postnet_freeze_iter"]) + 1
+    dev = batches[0]["audio"].device
+    st = trainer.build_statics(cfg, ds, start, dev)
+    params, up, us = weights
+    opt = ts.make_optimizer(cfg)
+    leaves = ts.tree_leaves({"model": params, "unet": up})
+    state = ts.TrainState(params, up, us, opt.init(leaves), start)
+    step = ts.make_train_step(opt, st, frozen)
+    out = {"loss": [], "grad_norm": []}
+    paths = tree_paths({"model": params, "unet": up})
+    for k, (b, d) in enumerate(zip(batches, draws)):
+        state, m = step(state, b, d)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        if k == 0:
+            out["grad"] = {p: g / (1.0 - opt.b1) for p, g in
+                           zip(paths, state.opt_state["mu"])}
+    out["params"] = dict(zip(paths, tree_leaves(
+        {"model": state.params, "unet": state.unet_params})))
+    return out
+'''
+
+
+def _hashes(top):
+    return {p.relative_to(top): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(top.rglob("*")) if p.is_file()}
+
+
+def test_a_new_training_cell_is_new_files_and_entries(tmp_path, monkeypatch):
+    """A training cell of May's sync stage (its configuration starts past
+    ``sync_start_iter`` and ``postnet_freeze_iter``, with the served
+    weights), with its own traffic mix, limits, per-layer metric and a
+    stand-in reference, added without editing any file of the benchmark:
+    the step takes the sync branch, and the run reports the cell's
+    metrics."""
+    from portbench.drivers import train as driver
+    root = tmp_path / "checkout"
+    shutil.copytree(registry.HERE, root / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    before = _hashes(root / "portbench")
+    conf = json.loads((registry.HERE / "configs" / "may.train.json")
+                      .read_text())
+    tr = conf["config"]["training"]
+    conf.update(name="may.sync-test", weights="served",
+                start_iter=max(tr["sync_start_iter"],
+                               tr["postnet_freeze_iter"]) + 1,
+                reference="portbench/reference/standin_sync.py")
+    pb = root / "portbench"
+    (pb / "configs" / "may.sync-test.json").write_text(json.dumps(conf))
+    (pb / "reference" / "standin_sync.py").write_text(STANDIN)
+    (pb / "workloads" / "sync-test.json").write_text(
+        (registry.HERE / "workloads" / "stage1-b1.json").read_text())
+    (pb / "limits" / "train.sync-test.json").write_text(
+        (registry.HERE / "limits" / "train.stage1-b1.json").read_text())
+    (pb / "metrics" / "iters.sync-test.py").write_text(
+        "def read(ctx):\n    return float(ctx['iters'])\n")
+    bench = json.loads(json.dumps(BENCH))
+    bench["configs"].append({"name": "may.sync-test",
+                             "source": BENCH["configs"][1]["source"],
+                             "file": "portbench/configs/may.sync-test.json",
+                             "reduced": ["identity_frames"], "why": "a test"})
+    bench["workloads"].append({"name": "train.sync-test",
+                               "config": "may.sync-test",
+                               "traffic": "sync-test", "chips": 1,
+                               "why": "a test"})
+    for m in bench["end_to_end"]:
+        if "train.stage1-b1" in m.get("workloads", []):
+            m["workloads"].append("train.sync-test")
+    bench["per_layer"].append({"name": "iters.sync-test", "unit": "iters",
+                               "better": "higher", "source": "host_clock",
+                               "layer": "training loop",
+                               "moves": "iter_device_ms",
+                               "workloads": ["train.sync-test"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    sessions = []
+    setup = driver.Session.setup
+
+    def kept(self):
+        setup(self)
+        sessions.append(self)
+    monkeypatch.setattr(driver.Session, "setup", kept)
+    c = small.cell("train.sync-test", bench=bench, root=root)
+    c.build_dir = tmp_path / "build"
+    with monkeypatch.context() as mp:
+        _busy_ms(mp)
+        out = harness.run(c, 2 ** 31 + 17, 0.3, False, small.CPU, 0.0)
+    _check_line(out, False)
+    assert set(out["metrics"]) == {"iter_device_ms", "setup_s"}
+    out = harness.run(c, 2 ** 31 + 19, 0.3, True, small.CPU, 0.0)
+    _check_line(out, True)
+    assert set(out["metrics"]) == {"iters.sync-test"}
+    for s in sessions:
+        assert s.st.sync_on and s.st.postnet_frozen
+        assert "syncnet" in s.frozen
+        assert all("loss_sync" in k["terms"] for k in s.checked)
+    assert len(sessions) == 2
+    after = _hashes(root / "portbench")
+    assert {p: after[p] for p in before} == before
 
 
 class _Trace:

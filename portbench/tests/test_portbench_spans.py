@@ -38,14 +38,15 @@ def test_a_traced_run_reports_every_part(name, tmp_path):
     c.build_dir = tmp_path
     out = harness.run(c, 2 ** 31 + 29, 0.4, True, small.CPU, 0.0)
     assert out["correct"] is True
-    mine = {m["name"] for m in c.per_layer} & set(SPAN_METRICS)
-    host = {n for n in mine if "_idle_" not in n}
-    assert len(host) == (3 if name.startswith("serve") else 8)
+    mine = {m["name"]: m for m in c.per_layer if "program_spans" in (
+        c.root / "portbench" / "metrics" / f"{m['name']}.py").read_text()}
+    host = {n for n, m in mine.items() if m["source"] == "program_counter"}
+    assert host
     got = out["metrics"]
     for n in host:
         assert got[n]["value"] > 0, n
     # the CPU trace holds no device activity: the idle readers are silent
-    assert not (mine - host) & set(got)
+    assert not (set(mine) - host) & set(got)
 
 
 class _Trace:

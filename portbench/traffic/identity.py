@@ -47,6 +47,12 @@ def ensure(params: Dict[str, Any], build_dir: Path) -> Path:
     return root
 
 
+def face_margin(face: int) -> int:
+    """The face box's margin: 8% of the face a side (40 px at 500), so the
+    box stays inside the face at any size."""
+    return int(round(0.08 * face))
+
+
 def _latent(pos: np.ndarray) -> np.ndarray:
     """Smooth 3-d latent over frame positions: incommensurate sinusoids."""
     p = np.asarray(pos, np.float64)[..., None]
@@ -204,7 +210,8 @@ def write(p: Dict[str, Any], root: Path) -> None:
     trans[:, 2] += 2.0
     np.savez(root / "track_params.pt.npz", euler=euler.astype(np.float32),
              trans=trans.astype(np.float32), focal=np.float32(p["focal"]))
+    m = face_margin(face)
     np.save(root / "face_bbox_dict.npy",
-            {f"{i + 1:05d}.jpg": np.array([40, 40, face - 40, face - 40, 1.0],
+            {f"{i + 1:05d}.jpg": np.array([m, m, face - m, face - m, 1.0],
                                           np.float32) for i in range(n)},
             allow_pickle=True)

@@ -20,6 +20,8 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
+from portbench.counts.flops import SYNC_AUDIO, SYNC_FACE
+
 # (path, shape, lo, hi); lo == hi is a constant leaf
 Leaf = Tuple[Tuple[Any, ...], Tuple[int, ...], float, float]
 
@@ -115,6 +117,27 @@ def lpips_leaves() -> List[Leaf]:
         leaves.append((("lins", i, "w"), (1, 1, co, 1), 0.0, co ** -0.5))
         c = co
     return leaves
+
+
+def syncnet_leaves() -> Tuple[List[Leaf], List[Leaf]]:
+    """(params, state) leaves of the frozen SyncNet expert: per encoder
+    (``face``, ``audio``) a list of blocks, each ``conv`` (HWIO ``w`` and
+    ``b``, uniform in +-1/sqrt(fan_in)) and ``bn`` (scale U(0.8, 1.2),
+    bias U(-0.1, 0.1)); the state ``bn`` mean U(-0.1, 0.1), var U(0.5,
+    1.5): a frozen net's eval state."""
+    params: List[Leaf] = []
+    state: List[Leaf] = []
+    for name, spec, c in (("face", SYNC_FACE, 15), ("audio", SYNC_AUDIO, 1)):
+        for i, (co, (kh, kw), _, _) in enumerate(spec):
+            b = (kh * kw * c) ** -0.5
+            params += [((name, i, "conv", "w"), (kh, kw, c, co), -b, b),
+                       ((name, i, "conv", "b"), (co,), -b, b),
+                       ((name, i, "bn", "scale"), (co,), 0.8, 1.2),
+                       ((name, i, "bn", "bias"), (co,), -0.1, 0.1)]
+            state += [((name, i, "bn", "mean"), (co,), -0.1, 0.1),
+                      ((name, i, "bn", "var"), (co,), 0.5, 1.5)]
+            c = co
+    return params, state
 
 
 def _put(tree, path, value):
