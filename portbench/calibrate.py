@@ -7,9 +7,9 @@ In one process (the kernels build once), for each seed: the cell's set-up,
 a short window at the cell's own load, then the numbers ``correct``
 compares, of the program against the plain reference; for each control
 seed also the same numbers with the reference computed one precision step
-below the configuration's put in the program's place (``fp8`` for a
-bfloat16 cell, ``tf32`` for a float32 one).  One JSON line a seed.  The
-benchmark's own runs never run this.
+below the configuration's put in the program's place (the precision the
+cell's driver names: ``fp8`` for a bfloat16 stage, ``tf32`` for a float32
+one).  One JSON line a seed.  The benchmark's own runs never run this.
 """
 
 import time
@@ -29,11 +29,18 @@ sys.path.insert(0, str(ROOT))
 from portbench import run as bench_run  # noqa: E402
 
 
+def driver(cell):
+    """The cell's driver module: its traffic's ``driver``, a module of
+    ``portbench.drivers``."""
+    return importlib.import_module(
+        f"portbench.drivers.{cell.traffic['driver']}")
+
+
 def control_precision(cell) -> str:
-    m, t = cell.config["config"]["model"], cell.config["config"]["training"]
-    dt = (t.get("compute_dtype") if cell.traffic["driver"] == "train"
-          else m.get("compute_dtype"))
-    return "fp8" if dt == "bfloat16" else "tf32"
+    """The precision of the cell's control, as its driver names it: one
+    step below the configuration's, or a name of the driver's own that its
+    ``Session.control`` reads."""
+    return driver(cell).control_precision(cell)
 
 
 def main(argv=None) -> int:
@@ -50,8 +57,8 @@ def main(argv=None) -> int:
     cell = registry.Cell(args.workload, registry.benchmark(ROOT), ROOT)
     D.require_cards(cell.chips)
     dev = torch.device("cuda", 0)
-    mod = importlib.import_module(f"portbench.drivers.{cell.traffic['driver']}")
-    prec = control_precision(cell)
+    mod = driver(cell)
+    prec = mod.control_precision(cell)
     ctrl = {int(s) for s in args.control_seeds.split(",") if s}
     seeds = [int(s) for s in args.seeds.split(",")]
     seeds += sorted(ctrl - set(seeds))

@@ -11,6 +11,7 @@ its output ready; its latency runs from the call to that point.
 
 from __future__ import annotations
 
+import copy
 import time
 from typing import Any, Dict, List
 
@@ -26,6 +27,32 @@ from portbench.traffic import frames as FR
 from portbench.traffic import weights as W
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+# a CPU test's face and lip crop (x, y, h, w) by path; the static scene's
+# crop stays under 90% of its face, so it takes the crop path
+SMALL = {"renderer": (64, (20, 30, 16, 24)),
+         "static_scene": (320, (128, 150, 48, 64))}
+
+
+def small(config, traffic):
+    """(configuration, traffic) cut to sizes a CPU test runs: the path's
+    face and lip crop, batches of 4 from 24 frames, one warm-up batch, and
+    2 checked batches drawn from the first 3."""
+    face, (x, y, h, w) = SMALL[traffic["path"]]
+    config = copy.deepcopy(config)
+    config["geometry"] = {"face": face,
+                          "lip": {"x": x, "y": y, "h": h, "w": w}}
+    config["config"]["data"].update(height=h, width=w)
+    traffic = dict(copy.deepcopy(traffic), batch=4, frames=24,
+                   warmup_batches=1, check={"batches": 2, "within": 3})
+    return config, traffic
+
+
+def control_precision(cell) -> str:
+    """The control's precision: one step below the type the model is
+    served in (``fp8`` below bfloat16, ``tf32`` below float32)."""
+    dt = cell.config["config"]["model"].get("compute_dtype")
+    return "fp8" if dt == "bfloat16" else "tf32"
 
 
 class Session:

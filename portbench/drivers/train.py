@@ -38,6 +38,26 @@ from portbench.traffic import weights as W
 SYNC_KEYS = ("mel", "audio_window", "coord_window", "rgb_window_neg")
 
 
+def small(config, traffic):
+    """(configuration, traffic) cut to sizes a CPU test runs: a 64-px face
+    with a 24 x 16 lip crop, in the configuration and in the identity the
+    traffic writes, and 12 frames."""
+    face, lip = 64, {"x": 20, "y": 30, "h": 16, "w": 24}
+    config = copy.deepcopy(config)
+    config.update(geometry={"face": face, "lip": lip}, identity_frames=12)
+    config["config"]["data"].update(height=lip["h"], width=lip["w"])
+    traffic = copy.deepcopy(traffic)
+    traffic["identity"].update(face=face, lip=dict(lip))
+    return config, traffic
+
+
+def control_precision(cell) -> str:
+    """The control's precision: one step below the type the step trains
+    in (``fp8`` below bfloat16, ``tf32`` below float32)."""
+    dt = cell.config["config"]["training"].get("compute_dtype")
+    return "fp8" if dt == "bfloat16" else "tf32"
+
+
 class Session:
     def __init__(self, cell, seed: int, device, span):
         self.cell, self.seed, self.dev, self.span = cell, seed, device, span

@@ -1,19 +1,21 @@
 """The control: the plain reference computed one precision step below the
-configuration's (fp8 for the bfloat16 serving cells, TF32 for the float32
-training cell), put in the program's place, comes out not correct under
-each cell's limits, while the program comes out correct.  At a size a CPU
+configuration's, as the cell's driver names it (fp8 for the bfloat16
+serving cells, TF32 for the float32 training cell), put in the program's
+place, comes out not correct under each cell's limits, while the program
+comes out correct; in every cell of ``BENCHMARK.json``.  At a size a CPU
 test run holds; ``portbench/calibrate.py`` reads the same on the card at
 the cells' own sizes."""
 
 import pytest
 
 from portbench.calibrate import control_precision
+from portbench.core import registry
 from portbench.reference import compare
 from portbench.tests import small
 
 
-@pytest.mark.parametrize("name", ["serve.dub-b32", "serve.avatar-b8",
-                                  "train.stage1-b1"])
+@pytest.mark.parametrize(
+    "name", [w["name"] for w in registry.benchmark()["workloads"]])
 def test_control_is_not_correct(name, tmp_path):
     c = small.cell(name)
     c.build_dir = tmp_path

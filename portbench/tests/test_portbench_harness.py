@@ -1,6 +1,7 @@
-"""The harness: it finds every file by name, a new cell (serving, or
-training in another stage) needs only new files and entries, its last line
-has the contract's keys, and it refuses to run without the card."""
+"""The harness: it finds every file by name, a new cell (serving, with the
+serving driver or a driver of its own, or training in another stage) needs
+only new files and entries, its last line has the contract's keys, and it
+refuses to run without the card."""
 
 import hashlib
 import json
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from portbench.core import harness, registry
+from portbench.reference import compare
 from portbench.tests import small
 
 BENCH = registry.benchmark()
@@ -39,6 +41,59 @@ def test_every_config_and_metric_has_its_file():
     for m in BENCH["per_layer"] + [e for e in BENCH["end_to_end"]
                                    if e["source"] == "device_trace"]:
         assert (registry.HERE / "metrics" / f"{m['name']}.py").is_file()
+
+
+# what ``small.cell`` changes in each cell's configuration and traffic, by
+# the rule of its driver: (path of keys, value)
+LIP_64 = {"x": 20, "y": 30, "h": 16, "w": 24}
+SERVE_TRAFFIC = {("batch",): 4, ("frames",): 24, ("warmup_batches",): 1,
+                 ("check", "batches"): 2, ("check", "within"): 3}
+SMALL = {
+    "serve.dub-b32": (
+        {("geometry", "face"): 64,
+         **{("geometry", "lip", k): v for k, v in LIP_64.items()},
+         ("config", "data", "height"): 16, ("config", "data", "width"): 24},
+        SERVE_TRAFFIC),
+    "serve.avatar-b8": (
+        {("geometry", "face"): 320, ("geometry", "lip", "x"): 128,
+         ("geometry", "lip", "y"): 150, ("geometry", "lip", "h"): 48,
+         ("geometry", "lip", "w"): 64,
+         ("config", "data", "height"): 48, ("config", "data", "width"): 64},
+        SERVE_TRAFFIC),
+    "train.stage1-b1": (
+        {("geometry", "face"): 64,
+         **{("geometry", "lip", k): v for k, v in LIP_64.items()},
+         ("config", "data", "height"): 16, ("config", "data", "width"): 24,
+         ("identity_frames",): 12},
+        {("identity", "face"): 64,
+         **{("identity", "lip", k): v for k, v in LIP_64.items()}}),
+}
+
+
+def _leaves(tree, path=()):
+    if not isinstance(tree, dict):
+        return {path: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(_leaves(v, path + (k,)))
+    return out
+
+
+def _changed(before, after):
+    """{path: value after} of every leaf that differs, is new or is gone
+    (``None``)."""
+    a, b = _leaves(before), _leaves(after)
+    return {p: b.get(p) for p in a.keys() | b.keys() if a.get(p) != b.get(p)}
+
+
+@pytest.mark.parametrize("name", sorted(SMALL))
+def test_small_sizes_are_pinned(name):
+    """The CPU test sizes of the three cells, key for key: what their
+    drivers' ``small`` change, and nothing else."""
+    c, s = registry.Cell(name, BENCH), small.cell(name)
+    config, traffic = SMALL[name]
+    assert _changed(c.config, s.config) == config
+    assert _changed(c.traffic, s.traffic) == traffic
 
 
 def _check_line(out, trace):
@@ -134,12 +189,14 @@ def test_host_iteration_is_the_window_over_its_iterations():
 @pytest.mark.parametrize("name", CELLS)
 def test_only_a_device_metric_records_an_untraced_window(name):
     """An untraced run records the device's activity only on the card and
-    only for a cell with an end-to-end metric of the device trace."""
+    only for a cell that ``BENCHMARK.json`` lists under an end-to-end
+    metric of the device trace (its ``source`` and ``workloads``)."""
     c = registry.Cell(name, BENCH)
-    device = any(m["source"] == "device_trace" for m in c.end_to_end)
+    device = any(name in m.get("workloads", CELLS)
+                 for m in BENCH["end_to_end"]
+                 if m["source"] == "device_trace")
     assert harness.device_window(c, torch.device("cuda", 0)) is device
     assert harness.device_window(c, small.CPU) is False
-    assert device is name.startswith("train")
 
 
 def test_a_new_cell_is_new_files_and_entries(tmp_path):
@@ -293,6 +350,171 @@ def test_a_new_training_cell_is_new_files_and_entries(tmp_path, monkeypatch):
         assert all("loss_sync" in k["terms"] for k in s.checked)
     assert len(sessions) == 2
     after = _hashes(root / "portbench")
+    assert {p: after[p] for p in before} == before
+
+
+# A stand-in for a serving cell with a driver of its own, written into the
+# temporary checkout as ``portbench/drivers/serve_standin.py``.
+STANDIN_DRIVER = '''"""A stand-in serving driver: requests of several lengths, each one's
+audio windows made on the host as ``cli/serve`` reads a ``.npy`` request,
+cut into batches of the ``StaticSceneRenderer`` at the request's own frame
+indices; the window shape is the configuration's ``speech`` section."""
+
+import numpy as np
+import torch
+
+from portbench.drivers import serve
+from portbench.traffic import draws as D
+
+CONTROL = {"standin-fp8": "fp8"}
+
+
+def small(config, traffic):
+    config, traffic = serve.small(config, traffic)
+    return config, dict(traffic, lengths=[6, 3])
+
+
+def control_precision(cell):
+    return "standin-fp8"
+
+
+class Session(serve.Session):
+    def setup(self):
+        sp = self.cell.config["speech"]
+        # the seed's own order of the lengths, and the windows: the
+        # ``order`` stream, which the serving driver draws nothing from
+        rng = D.rng(self.seed, "order")
+        self.plan = []
+        for n in rng.permutation(self.tr["lengths"]):
+            audio = rng.standard_normal(
+                (int(n), sp["window"], sp["features"]), dtype=np.float32)
+            for s in range(0, int(n), self.batch):
+                a = audio[s:s + self.batch]
+                self.plan.append((a, np.arange(s, s + len(a),
+                                               dtype=np.float32)))
+        super().setup()
+
+    def _batch(self, k):
+        return self.plan[k % len(self.plan)]
+
+    def _call(self, k):
+        return {"face": self.program(*self._batch(k))}
+
+    def _inputs(self, k):
+        return {key: torch.from_numpy(v).to(self.dev)
+                for key, v in zip(("audio", "index"), self._batch(k))}
+
+    def frames(self):
+        return sum(len(self._batch(k)[1]) for k in range(self.batches))
+
+    def end_to_end(self):
+        return dict(super().end_to_end(),
+                    frames_per_s=self.frames() / self.window_s)
+
+    def context(self):
+        begun = sum(self._batch(k)[1][0] == 0 for k in range(self.batches))
+        return dict(super().context(), frames=self.frames(),
+                    requests=int(begun))
+
+    def control(self, precision):
+        return super().control(CONTROL[precision])
+'''
+
+
+def test_a_new_serving_driver_is_new_files_and_entries(tmp_path, monkeypatch,
+                                                       request):
+    """A serving cell with a driver of its own (a stand-in: requests of
+    several lengths from the host, cut into batches of the static scene),
+    with its own configuration section, traffic mix, limits and per-layer
+    metric, added without editing any file of the benchmark: the harness
+    finds every file, ``small.cell`` shrinks it by the driver's own rule,
+    it runs correct untraced and traced, and its control is the one the
+    driver names."""
+    from portbench import calibrate, drivers
+    from portbench.drivers import serve
+    root = tmp_path / "checkout"
+    shutil.copytree(registry.HERE, root / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    pb = root / "portbench"
+    before = _hashes(pb)
+    conf = json.loads((registry.HERE / "configs" / "may.serve.json")
+                      .read_text())
+    conf.update(name="may.standin", speech={"window": 16, "features": 29})
+    (pb / "configs" / "may.standin.json").write_text(json.dumps(conf))
+    (pb / "drivers" / "serve_standin.py").write_text(STANDIN_DRIVER)
+    (pb / "workloads" / "standin-b8.json").write_text(json.dumps({
+        "driver": "serve_standin", "path": "static_scene", "batch": 8,
+        "frames": 600, "lengths": [50, 125, 250], "warmup_batches": 3,
+        "check": {"batches": 3, "within": 48}}))
+    (pb / "limits" / "serve.standin-b8.json").write_text(
+        (registry.HERE / "limits" / "serve.avatar-b8.json").read_text())
+    (pb / "metrics" / "requests.standin.py").write_text(
+        "def read(ctx):\n    return float(ctx['requests'])\n")
+    bench = json.loads(json.dumps(BENCH))
+    bench["configs"].append({"name": "may.standin",
+                             "source": BENCH["configs"][0]["source"],
+                             "file": "portbench/configs/may.standin.json",
+                             "reduced": [], "why": "a test"})
+    bench["workloads"].append({"name": "serve.standin-b8",
+                               "config": "may.standin",
+                               "traffic": "standin-b8", "chips": 1,
+                               "why": "a test"})
+    for m in bench["end_to_end"]:
+        if m["name"] == "frames_per_s":
+            m["workloads"].append("serve.standin-b8")
+    bench["per_layer"].append({"name": "requests.standin",
+                               "unit": "requests", "better": "higher",
+                               "source": "host_clock",
+                               "layer": "serving entry",
+                               "moves": "frames_per_s",
+                               "workloads": ["serve.standin-b8"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    name = "portbench.drivers.serve_standin"
+
+    def forget():
+        sys.modules.pop(name, None)
+        drivers.__dict__.pop("serve_standin", None)
+    request.addfinalizer(forget)
+    monkeypatch.setattr(drivers, "__path__",
+                        [*drivers.__path__, str(pb / "drivers")])
+
+    full = registry.Cell("serve.standin-b8", bench, root)
+    assert full.config["speech"] == {"window": 16, "features": 29}
+    assert full.traffic["lengths"] == [50, 125, 250]
+    assert full.limits == registry.Cell("serve.avatar-b8", BENCH).limits
+    assert {m["name"] for m in full.end_to_end} == {"frames_per_s",
+                                                    "setup_s"}
+    assert [m["name"] for m in full.per_layer] == ["requests.standin"]
+    assert callable(registry.metric_module("requests.standin", root).read)
+    c = small.cell("serve.standin-b8", bench=bench, root=root)
+    assert small.driver(c).__name__ == name
+    assert c.traffic["lengths"] == [6, 3] and c.traffic["batch"] == 4
+    assert c.config["geometry"]["face"] == 320
+    assert c.config["speech"] == full.config["speech"]
+    assert calibrate.control_precision(c) == "standin-fp8"
+
+    sessions = []
+    setup = serve.Session.setup
+
+    def kept(self):
+        setup(self)
+        sessions.append(self)
+    monkeypatch.setattr(serve.Session, "setup", kept)
+    out = harness.run(c, 2 ** 31 + 23, 0.3, False, small.CPU, 0.0)
+    _check_line(out, False)
+    assert set(out["metrics"]) == {"frames_per_s", "setup_s"}
+    out = harness.run(c, 2 ** 31 + 37, 0.3, True, small.CPU, 0.0)
+    _check_line(out, True)
+    assert set(out["metrics"]) == {"requests.standin"}
+    assert len(sessions) == 2
+    for s in sessions:
+        assert type(s).__module__ == name
+        assert sorted(len(i) for _, i in s.plan) == [2, 3, 4]
+    ctrl = compare.judge(sessions[-1].control(calibrate.control_precision(c)),
+                         c.limits)
+    assert not compare.passed(ctrl), ctrl
+    after = _hashes(pb)
     assert {p: after[p] for p in before} == before
 
 
