@@ -1,15 +1,16 @@
 // Inline-PTX building blocks of the port's tensor-core kernels.
 //
-// sm_80+ warp level (K3-K6): 16-byte asynchronous global->shared copies
+// sm_80+ warp level (K5): 16-byte asynchronous global->shared copies
 // (cp.async.cg, zero-fill by src-size 0), ldmatrix fragment loads and the
 // bf16 m16n8k16 mma.sync with float32 accumulate.  Fragment layouts are
 // the PTX ISA's (mma.m16n8k16, .row.col): A row-major 16x16 in four .b32
 // registers, B 16x8 in two, C 16x8 float32 in four (rows lane/4 and
 // lane/4 + 8, columns 2 * (lane % 4) + {0, 1}).
 //
-// sm_90a warpgroup level (K1's bf16 body, K8): mbarriers, TMA tile loads
-// and the tensor maps they read, wgmma shared-memory descriptors of
-// 128-byte-swizzled operands, and the wgmma products with their fences.
+// sm_90a warpgroup level (the bf16 bodies of K1 and K3, K8): mbarriers,
+// TMA tile loads and the tensor maps they read, wgmma shared-memory
+// descriptors (128- and 32-byte-swizzled operands), the wgmma
+// products with their fences, and transposing stmatrix stores.
 #pragma once
 
 #include <cuda.h>
@@ -78,7 +79,7 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// The warp tile of the conv kernels (double_conv.cu, fused_block.cu): four
+// The warp tile of the conv kernel double_conv.cu: four
 // m16 fragments (64 pixels) x eight n8 fragments (64 channels), 128
 // float32 accumulators a thread.
 constexpr int kTileFrags = 4;
@@ -259,9 +260,95 @@ __device__ __forceinline__ void wgmma(float (&d)[4], uint64_t da, uint64_t db, i
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+#define S2L_REGS40                                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "  \
+  "%38, %39}"
+#define S2L_REGS64                                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "  \
+  "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "  \
+  "%56, %57, %58, %59, %60, %61, %62, %63}"
+#define S2L_D40(C) S2L_D16(C, 0), S2L_D16(C, 16), S2L_D4(C, 32), S2L_D4(C, 36)
+#define S2L_D64(C) S2L_D16(C, 0), S2L_D16(C, 16), S2L_D16(C, 32), S2L_D16(C, 48)
+
+// bf16 over 64 rows x 128 (or 80) columns x 16 of k with A MN-major
+// (transpose bit set) and B K-major: the conv's [k][64 cout] weights as A,
+// pixels as the columns of B
+__device__ __forceinline__ void wgmma_ta(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " S2L_REGS64
+      ", %64, %65, p, 1, 1, 1, 0;\n}\n"
+      : S2L_D64("+f")
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_ta(float (&d)[40], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 " S2L_REGS40
+      ", %40, %41, p, 1, 1, 1, 0;\n}\n"
+      : S2L_D40("+f")
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// wgmma descriptor of a K-major operand with the 32-byte swizzle of TMA's
+// CU_TENSOR_MAP_SWIZZLE_32B: rows of 32 bytes (16 bf16 of k, one k step),
+// the two 16-byte halves of a row swapped where address bit 7 is set;
+// stride = the distance of 8-row groups.  The swizzle follows the absolute
+// address, so a start at any row (32 bytes) reads the rows TMA wrote there
+// (base offset 0; measured on the H100: the start's bits 7-9 there read
+// other rows).
+__device__ __forceinline__ uint64_t sw32_desc(uint32_t addr, uint32_t stride) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(stride >> 4) << 32) |
+         (3ull << 62);
+}
+
+// Four 8x8 b16 matrices from registers to shared memory, each transposed:
+// register i holds matrix i in the mma fragment layout (row lane / 4,
+// columns 2 (lane % 4) and one more); lane l gives the address of stored
+// row l % 8 of matrix l / 8, which is that matrix's column l % 8.
+__device__ __forceinline__ void stsm_x4_trans(uint32_t addr, uint32_t r0, uint32_t r1,
+                                              uint32_t r2, uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+// The same for two matrices (lanes 0-15 give the addresses).
+__device__ __forceinline__ void stsm_x2_trans(uint32_t addr, uint32_t r0, uint32_t r1) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x2.trans.shared.b16 [%0], {%1, %2};\n" ::"r"(addr),
+               "r"(r0), "r"(r1)
+               : "memory");
+}
+
+// 3-D and 4-D boxes at coordinates (c0 innermost, ...) of a tensor map, as
+// tma_load; coordinates may lie outside the tensor, whose elements there
+// read as zeros (and still count on bar)
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         int c2, int c3, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
 #undef S2L_REGS128
+#undef S2L_REGS64
+#undef S2L_REGS40
 #undef S2L_D4
 #undef S2L_D16
+#undef S2L_D64
+#undef S2L_D40
 #undef S2L_D128
 
 // ---- host: tensor maps -----------------------------------------------------
@@ -292,22 +379,38 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// A map of `rank` dimensions of `type` (dims[0] innermost, contiguous;
+// strides in bytes of dimensions 1..rank-1), boxes of box[0] x ...;
+// elements of a box outside the tensor read as zeros.  Returns a
+// cudaError_t.
+inline int make_map_nd(CUtensorMapDataType type, CUtensorMap* map, const void* base, int rank,
+                       const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
+                       CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorInitializationError;
+  cuuint64_t d[5], s[4];
+  cuuint32_t b[5], elem[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    elem[i] = 1;
+    if (i + 1 < rank) s[i] = strides[i];
+  }
+  const CUresult r = encode(map, type, (cuuint32_t)rank, const_cast<void*>(base), d, s, b, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 // A 2-D map over rows of `inner` elements (`rows` of them, `pitch` bytes
 // apart), boxes of box_inner x box_rows, 128-byte swizzle; a box reaching
 // past the rows reads zeros there.  Returns a cudaError_t.
 inline int make_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, uint64_t inner,
                     uint64_t rows, uint64_t pitch, uint32_t box_inner, uint32_t box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorInitializationError;
-  const cuuint64_t dims[2] = {inner, rows};
-  const cuuint64_t strides[1] = {pitch};
-  const cuuint32_t box[2] = {box_inner, box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  const uint64_t dims[2] = {inner, rows};
+  const uint32_t box[2] = {box_inner, box_rows};
+  return make_map_nd(type, map, base, 2, dims, &pitch, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace s2l

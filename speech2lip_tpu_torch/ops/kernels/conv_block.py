@@ -6,8 +6,8 @@ BatchNorm fold (counterpart of ``speech2lip_tpu/ops/pallas/conv_block.py``).
 JAX module does; ``unet_light.apply_infer_pallas`` runs ten per U-Net.  On
 the card the launch is the K3 conv kernel with no upsample source and no
 pool (``csrc/fused_block.cu``, ``fused_block.conv3x3_affine``), an implicit
-GEMM on the tensor cores (in bf16 16x32-pixel x 64-channel tiles fed by a
-cp.async ring; see ``fused_block``).  The TPU kernel's three row-shifted
+GEMM on the tensor cores (in bf16 4-row x 128- or 80-pixel x 64-channel
+tiles, wgmma fed by a TMA ring; see ``fused_block``).  The TPU kernel's three row-shifted
 input views are not carried over.  The TPU kernel takes any Cout; the card's instances are
 Cout 64, 128 and 256, and another Cout raises.  The plain version, shared
 with K4, is ``fused_block.conv3x3_affine_plain``.

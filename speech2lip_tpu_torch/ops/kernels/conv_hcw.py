@@ -9,8 +9,8 @@ arguments are NHWC with no halo.
 
 - ``conv3x3_hcw`` (K4): relu?(conv3x3(x, w, pad 1) * scale + bias).  On the
   card it launches the K3 conv kernel with no upsample source and no pool
-  (``fused_block.conv3x3_affine``; in bf16 the cp.async-ring / ldmatrix /
-  mma.sync design), Cout in {64, 128, 256} as the TPU kernel;
+  (``fused_block.conv3x3_affine``; in bf16 the TMA-ring / wgmma design),
+  Cout in {64, 128, 256} as the TPU kernel;
   ``unet_light.apply_infer_hcw`` runs ten per U-Net.
 - ``double_conv_hcw`` (K5): DoubleConv in one launch of
   ``csrc/double_conv.cu``, the conv1 output kept in shared memory (never

@@ -9,14 +9,17 @@ memory), the second reads the mid activation back from device memory and
 emits the pooled output from its epilogue.
 
 On the H100 the kernel is an implicit GEMM on the tensor cores.  In bf16
-(the serving type) a block computes 16x32-pixel x 64-channel output tiles,
-one block per SM walking the tiles; a four-stage ring of 16-channel chunks
-(input patch and weights) is filled by ``cp.async`` three chunks ahead,
-the upsampled chunks computed by the threads as they fill; ``ldmatrix`` +
-``mma.sync`` m16n8k16 warp tiles; BN, ReLU and the pool in registers, the
-output stored as 16-byte rows.  In float32 it is the first design, 3xTF32
-WMMA over 8x16-pixel tiles with un-pipelined loads.  ``conv3x3_attrs``
-reports an instance's registers, local memory and shared memory.
+(the serving type) a block computes output tiles of 4 rows x 128 pixels
+(80 where that leaves fewer columns idle) x 64 channels, one block per SM
+walking the tiles: a producer warpgroup keeps a ring of 16-channel stages
+full (the weights and the input patch by TMA, zero-filled past the image;
+the upsampled channels computed by its threads), two consumer warpgroups
+run ``wgmma`` with the weights as A and the patch, shifted per tap by a
+descriptor offset, as B; BN, ReLU and the pool in registers, the output
+stored through ``stmatrix`` staging as 16-byte pieces of pixel rows.  In
+float32 it is the first design, 3xTF32 WMMA over 8x16-pixel tiles with
+un-pipelined loads.  ``conv3x3_attrs`` reports an instance's registers,
+local memory and shared memory.
 
 ``conv3x3_affine`` launches the same kernel as a plain conv3x3 + per-channel
 scale/bias [+ ReLU] (no upsample source, no pool): the kernel behind K4

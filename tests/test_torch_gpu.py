@@ -256,7 +256,16 @@ def _check_fused_block(cuda, dtype, block, size, pool, batch=2, lo_size=None):
     # 308x344, 154x172 with a 77x86 source, 77x86 pooled to 38x43
     ("inc", (308, 344), True), ("down1", (154, 172), True),
     ("down2", (77, 86), True), ("up1", (154, 172), False),
-    ("up2", (308, 344), False)])
+    ("up2", (308, 344), False),
+    # the serving cells' widths, each tile width the bf16 body picks:
+    # 500, 250 and 125 in 128-pixel tiles, the avatar crop's 320, 160 and
+    # 80 in 80-pixel ones; and the smallest image
+    ("inc", (6, 500), True), ("up2", (5, 500), False),
+    ("down1", (6, 250), True), ("up1", (7, 250), False),
+    ("down2", (5, 125), False), ("inc", (9, 320), True),
+    ("up2", (4, 320), False), ("down1", (6, 160), True),
+    ("up1", (5, 160), False), ("down2", (7, 80), False),
+    ("down1", (2, 2), True)])
 def test_fused_block_kernel(cuda, dtype, block, size, pool):
     _check_fused_block(cuda, dtype, block, size, pool)
 
@@ -273,15 +282,56 @@ def test_fused_block_kernel_any_upsample_ratio(cuda, dtype, size, lo_size):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("h", [15, 16, 17])
-@pytest.mark.parametrize("w", [31, 32, 33])
+@pytest.mark.parametrize("h", [3, 4, 5])
+@pytest.mark.parametrize("w", [79, 80, 81, 127, 128, 129])
 @pytest.mark.parametrize("pool", [True, False])
 def test_fused_block_kernel_tile_edges(cuda, dtype, h, w, pool):
-    """K3 one pixel under, on and over the bf16 body's 16x32 tile on each
-    axis: pooled as down1 (two 64-channel output tiles), unpooled as up2
-    (a computed upsample source); batch 3 spreads the tiles over blocks."""
+    """K3 one pixel under, on and over the bf16 body's tiles: 4 rows, and
+    80 or 128 pixels (79 and 80 take one 80-pixel tile, 81 to 128 one of
+    128, 129 two of 80): pooled as down1 (two 64-channel output tiles),
+    unpooled as up2 (a computed upsample source); batch 3 spreads the
+    tiles over blocks."""
     _check_fused_block(cuda, dtype, "down1" if pool else "up2", (h, w),
                        pool, batch=3)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_block_kernel_in_a_cuda_graph(cuda, dtype):
+    """A K3 block (up1: the upsampled source computed into the stages)
+    captured in a CUDA graph replays the eager output, and again after
+    its inputs change in place: its tensor maps are kernel arguments
+    over the captured buffers.  The launch counter counts at capture."""
+    _, up, us = weights.random_params(0, device=cuda, dtype=dtype)
+    p, s = up["up1"], us["up1"]
+    s1, b1 = fold_bn(p["bn1"], s["bn1"])
+    s2, b2 = fold_bn(p["bn2"], s["bn2"])
+    args = (p["conv1"]["w"], s1.float(), b1.float(), p["conv2"]["w"],
+            s2.float(), b2.float())
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.rand(2, 21, 166, 128, device=cuda, generator=g).to(dtype)
+    lo = torch.rand(2, 10, 83, 128, device=cuda, generator=g).to(dtype)
+    eager = kfb.fused_block(x, *args, up=lo)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kfb.fused_block(x, *args, up=lo)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = kfb.launches
+    with torch.cuda.graph(graph):
+        out = kfb.fused_block(x, *args, up=lo)
+    assert kfb.launches == before + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    x.mul_(0.5)
+    lo.add_(0.25)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert kfb.launches == before + 1
+    want = kfb.fused_block(x, *args, up=lo)
+    assert torch.equal(out, want)
+    assert _rel_err(out, kfb.fused_block_plain(x, *args, up=lo)) < BOUND[dtype]
 
 
 # (cin, cout) of the U-Net's ten convs, inc to up2
@@ -301,15 +351,23 @@ def _conv_args(cuda, dtype, cin, cout, seed):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("cin,cout,relu", [c + (True,) for c in UNET_CONVS]
-                         + [(64, 64, False), (16, 256, True),
-                            (3, 256, True), (256, 256, False)])
-def test_conv3x3_kernels(cuda, dtype, cin, cout, relu):
+@pytest.mark.parametrize("cin,cout,relu,size",
+                         [c + (True, (37, 45)) for c in UNET_CONVS]
+                         + [(64, 64, False, (37, 45)),
+                            (16, 256, True, (37, 45)),
+                            (3, 256, True, (37, 45)),
+                            (256, 256, False, (37, 45)),
+                            (128, 256, True, (6, 500)),
+                            (64, 256, False, (5, 320)),
+                            (3, 256, True, (3, 80)),
+                            (24, 64, True, (2, 2))])
+def test_conv3x3_kernels(cuda, dtype, cin, cout, relu, size):
     """K4 (conv3x3_hcw) and K6 (conv3x3_infer), one kernel behind two
     wrappers, at the U-Net's conv shapes on a 37x45 input (no tile
-    multiple), ReLU off, Cin 3 and Cout 256 too."""
+    multiple), ReLU off, Cin 3 and Cout 256 too (in both tile widths of
+    the bf16 body), Cin 24 (a chunk half full) on a 2x2 image."""
     w, scale, bias = _conv_args(cuda, dtype, cin, cout, cin + cout)
-    x = torch.rand(2, 37, 45, cin, device=cuda,
+    x = torch.rand(2, *size, cin, device=cuda,
                    generator=torch.Generator(device=cuda).manual_seed(5)
                    ).to(dtype)
     ref = kfb.conv3x3_affine_plain(x, w, scale, bias, relu)

@@ -6,6 +6,10 @@ launch counters at 0; the CUDA kernels themselves are held against the
 plain versions on the card (tests/test_torch_gpu.py, chip_smoke.py).
 """
 
+import importlib.util
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +26,7 @@ from speech2lip_tpu.ops.embedders import fourier_embed as jfourier
 from speech2lip_tpu.ops.grid_sample import grid_sample_onehot as jonehot
 from speech2lip_tpu_torch import weights
 from speech2lip_tpu_torch.models import unet_light as tunet
+from speech2lip_tpu_torch.ops.kernels import _build
 from speech2lip_tpu_torch.ops.kernels import fused_block as kfb
 from speech2lip_tpu_torch.ops.kernels import fused_mlp as kmlp
 from speech2lip_tpu_torch.ops.kernels import window_sample as kws
@@ -389,3 +394,44 @@ def test_weight_bridge_layouts():
     badp = dict(jp, output={"w": jp["output"]["w"].T, "b": jp["output"]["b"]})
     with pytest.raises(ValueError):
         weights.from_jax(badp, jup, jus)
+
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _fused_block_source() -> str:
+    return (_build.CSRC / "fused_block.cu").read_text()
+
+
+def test_fused_block_kernels_keep_the_name_their_roofline_reads():
+    """The bf16 body (namespace hb of csrc/fused_block.cu), which every
+    bf16 K3, K4 and K6 launch reaches, names each of its kernels with the
+    pattern ``fused_block_roofline`` finds them by in a device trace, and
+    launches nothing else: a rename cannot silently empty the metric."""
+    spec = importlib.util.spec_from_file_location(
+        "fused_block_roofline",
+        ROOT / "portbench" / "metrics" / "fused_block_roofline.py")
+    metric = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(metric)
+    src = _fused_block_source()
+    hb = src[src.index("namespace hb {"):src.index("}  // namespace hb")]
+    kernels = re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\(", hb)
+    launched = re.findall(r"(\w+)(?:<[^<>;]*>)?\s*<<<", hb)
+    assert kernels and launched
+    assert all(metric.PATTERN in k for k in kernels), kernels
+    assert set(launched) <= set(kernels), launched
+    # the bf16 entry points reach the body through launch<T>
+    assert "hb::launch(a, cout, s)" in src
+
+
+def test_fused_block_defines_the_entry_points_it_is_bound_by():
+    """Every ``conv3x3_*`` C entry point ``_build`` binds is defined in
+    csrc/fused_block.cu with the number of arguments it binds."""
+    src = _fused_block_source()
+    names = [n for n in _build.SIGNATURES if n.startswith("conv3x3_")]
+    assert len(names) == 5
+    for name in names:
+        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
+        assert m, name
+        assert len(m.group(1).split(",")) == len(_build.SIGNATURES[name]), name
