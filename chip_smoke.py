@@ -689,8 +689,9 @@ def avi_video_frames(path: str) -> int:
 def unet_k3(h: int, w: int) -> int:
     """K3 launches of one static-scene U-Net call at h x w: five where the
     renderer's shape rule takes K3, none on its plain exact-2x path."""
-    from speech2lip_tpu_torch.infer.static_scene import fused_unet_fits
-    return 5 if fused_unet_fits(h, w) else 0
+    from speech2lip_tpu_torch.infer.static_scene import K3_MAX
+    from speech2lip_tpu_torch.models.unet_light import k3_runs
+    return 5 if k3_runs((1, h, w), max(h, w) <= K3_MAX) else 0
 
 
 def new_audio(dev, card: str, tmp: str, identity: str) -> dict:
@@ -877,7 +878,7 @@ def new_audio(dev, card: str, tmp: str, identity: str) -> dict:
         else:
             srv = res["server"]
             b = frame_batch(res["bases"][0], win_a, 0, SERVE_B, dev)
-            pair = (srv.render_fast(0, b)["face"],
+            pair = (srv.render(0, b)["face"],
                     srv.render_plain(0, b)["face"])
             what = f"window {srv.window}"
         out[f"{tag}_err"] = check(

@@ -61,7 +61,7 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from speech2lip_tpu_torch.infer.renderer import resolve_device
+    from speech2lip_tpu_torch.core.device import resolve_device
     from speech2lip_tpu_torch.train import metrics_eval as me
 
     device = resolve_device(args.device)

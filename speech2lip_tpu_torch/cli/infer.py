@@ -61,7 +61,8 @@ def main(argv=None):
     from speech2lip_tpu_torch.data import image_io
     from speech2lip_tpu_torch.data.dataset import LipDataset, stack_batch
     from speech2lip_tpu_torch.infer.pipeline import RENDER_KEYS
-    from speech2lip_tpu_torch.infer.renderer import Renderer, resolve_device
+    from speech2lip_tpu_torch.core.device import resolve_device
+    from speech2lip_tpu_torch.infer.renderer import Renderer
     from speech2lip_tpu_torch.train.trainer import (init_params, to_device,
                                                     warp_window)
 

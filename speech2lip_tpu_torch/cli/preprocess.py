@@ -87,7 +87,7 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
-    from speech2lip_tpu_torch.infer.renderer import resolve_device
+    from speech2lip_tpu_torch.core.device import resolve_device
     from speech2lip_tpu_torch.ops.nn import full_float32
 
     import torch

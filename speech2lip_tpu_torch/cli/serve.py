@@ -149,7 +149,7 @@ def main(argv=None):
     from speech2lip_tpu_torch.data import image_io
     from speech2lip_tpu_torch.infer.pipeline import (MultiSpeakerServer,
                                                      frame_batch)
-    from speech2lip_tpu_torch.infer.renderer import resolve_device
+    from speech2lip_tpu_torch.core.device import resolve_device
 
     device = resolve_device(args.device)
     dtype = (torch.float32 if args.fp32 else
@@ -221,7 +221,7 @@ def main(argv=None):
                 else:
                     b = frame_batch(bases[ident], wins, start, stop, device)
                     t0 = time.perf_counter()
-                    faces = server.render_fast(ident, b)["face"]
+                    faces = server.render(ident, b)["face"]
                 faces = faces.cpu().numpy()
                 summary["render_seconds"] += time.perf_counter() - t0
                 for k, i in enumerate(range(start, stop)):

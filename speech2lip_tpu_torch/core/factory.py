@@ -57,7 +57,7 @@ def _build_face_simple_model(cfg, device=None, canonical_depth_init=None):
     """(talking_face params, unet params, unet state) on ``device`` (the
     card by default), the U-Net's BatchNorm at the JAX init's identity."""
     from speech2lip_tpu_torch import weights
-    from speech2lip_tpu_torch.infer.renderer import resolve_device
+    from speech2lip_tpu_torch.core.device import resolve_device
     from speech2lip_tpu_torch.train.trainer import _identity_bn
     params, unet_p, unet_s = weights.random_params(
         cfg["training"].get("seed", 0), device=resolve_device(device),

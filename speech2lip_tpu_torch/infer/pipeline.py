@@ -14,8 +14,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from speech2lip_tpu_torch.infer.renderer import (cast_tree, render_face_batch,
-                                                 resolve_device)
+from speech2lip_tpu_torch.core.device import resolve_device
+from speech2lip_tpu_torch.infer.renderer import FrontEnd, render_face_batch
 from speech2lip_tpu_torch.parallel.mesh import (DATA, all_gather_rows,
                                                 data_size, local_rows)
 
@@ -68,22 +68,18 @@ def new_audio_frames(cfg: Dict[str, Any], state, ds, ds_params,
         yield renderer(b, ds.lefttop_x, ds.lefttop_y)["face"].cpu().numpy()
 
 
-class MultiSpeakerServer:
+class MultiSpeakerServer(FrontEnd):
     """Multi-identity serving: S identities that share the lip and face
     geometry, grouped by lip paste offset.
 
     The JAX server stacks each group's parameters and serves a group with
-    one vmapped XLA program, or each identity through its fused kernels
-    once the per-identity batch reaches ``FUSED_BATCH_THRESHOLD``.  The
-    port has no vmapped program to build: K1's weights belong to one
+    one vmapped XLA program, or each identity through its fused kernels.
+    The port has no vmapped program to build: K1's weights belong to one
     identity, so no K1 launch spans identities.  It keeps one set of
     parameters per identity, cast to the compute dtype once, at
     construction (casting per call would cost hundreds of small copies),
     and serves each identity of each group in turn through the kernel
-    path: K1, K2 and five K3 launches a batch on the card.  So the JAX
-    server's two routes, which compute the same function, are one route
-    here on both sides of its ``FUSED_BATCH_THRESHOLD``, which stays as
-    the JAX server's switch.
+    path: K1, K2 and five K3 launches a batch on the card.
 
     ``mesh`` (``parallel.mesh.make_mesh``): the identities of each offset
     group split over the mesh's data axis, as the JAX server shards a
@@ -103,8 +99,6 @@ class MultiSpeakerServer:
     with the kernels, float32 without; ``compute_dtype`` overrides it.
     """
 
-    FUSED_BATCH_THRESHOLD = 16
-
     def __init__(self, cfg: Dict[str, Any], param_sets: List[tuple],
                  lip_positions: List[tuple], window: Optional[tuple] = None,
                  use_kernels: Optional[bool] = None, mesh=None, device=None,
@@ -113,18 +107,6 @@ class MultiSpeakerServer:
         lip_positions: [(lip_x, lip_y)] per identity; window: the static
         warp window every identity's composite uses."""
         from speech2lip_tpu_torch.parallel.distributed import rank_device
-        self.device = rank_device(resolve_device(device))
-        on_card = self.device.type == "cuda"
-        if use_kernels is None:
-            use_kernels = on_card
-        if on_card and not use_kernels:
-            raise ValueError("MultiSpeakerServer: a CUDA device runs the "
-                             "kernels; use_kernels=False is for the CPU")
-        self.use_kernels = bool(use_kernels)
-        self.compute_dtype = compute_dtype or (
-            torch.bfloat16 if self.use_kernels else torch.float32)
-        d = cfg["data"]
-        self.lip_h, self.lip_w = int(d["height"]), int(d["width"])
         self.window = tuple(window) if window is not None else None
         self.n_identities = len(param_sets)
         self.groups: Dict[tuple, List[int]] = {}
@@ -145,9 +127,10 @@ class MultiSpeakerServer:
             self._mine[off] = (ids if len(ids) == 1
                                else ids[local_rows(len(ids), mesh)])
         self.served = [i for ids in self._mine.values() for i in ids]
-        self._param_sets = {
-            i: tuple(cast_tree(t, self.device, self.compute_dtype)
-                     for t in param_sets[i]) for i in self.served}
+        self._param_sets = self.bind(
+            cfg, {i: param_sets[i] for i in self.served},
+            rank_device(resolve_device(device)), use_kernels, compute_dtype,
+            kernel_dtype=torch.bfloat16, plain_dtype=torch.float32)
 
     def param_shardings(self) -> Dict[tuple, torch.device]:
         """{offset group -> the device its identities' parameters are on}:
@@ -174,11 +157,6 @@ class MultiSpeakerServer:
         window: the reference the kernel path is held to.  It serves
         nothing."""
         return self._render(identity, batch, False)
-
-    def render_fast(self, identity: int, batch: Dict[str, Any]):
-        """The JAX server's fused-kernel route for one identity: in the
-        port the same path as ``render``."""
-        return self.render(identity, batch)
 
     def render_all(self, batches: List[Dict[str, Any]]):
         """Serve every identity, group by group, each identity of a group

@@ -4,8 +4,8 @@
 Render the canonical-space face, forward-splat it into a novel head pose
 with the learned canonical depth (``ops/splat.py``), then refine it with
 the post-fusion U-Net.  With ``use_kernels`` the lip runs through K1 and
-the U-Net through K3 (``unet_light.apply_infer_fused``, the U-Net in eval
-mode as the ``Renderer`` serves it; the JAX function calls XLA's
+the U-Net through ``unet_light.apply_infer`` as the ``Renderer`` serves it
+(K3 where H and W are multiples of 4; the JAX function calls XLA's
 ``unet_light.apply(train=False)``, the same function); on CPU tensors the
 kernel wrappers run their plain versions.  ``use_kernels=False`` is the
 plain path.  The geometry and the splat run in float32.
@@ -17,6 +17,9 @@ from __future__ import annotations
 
 import torch
 
+from speech2lip_tpu_torch.infer.renderer import FrontEnd, render_lip_batch
+from speech2lip_tpu_torch.models import talking_face as tf
+from speech2lip_tpu_torch.models import unet_light
 from speech2lip_tpu_torch.ops.geometry import (backproject_depth, intrinsics,
                                                pose_matrix, project_3d)
 from speech2lip_tpu_torch.ops.splat import forward_splat_nearest
@@ -98,10 +101,6 @@ def render_pose_edited_batch(params, unet_params, unet_state, batch, *,
     canonical_euler, canonical_trans, tensors on one device.  params in
     ``compute_dtype`` except ``canonical_depth``, which the geometry reads
     in float32.  Returns [B, H, W, 3] float32 pose-edited faces."""
-    from speech2lip_tpu_torch.infer.renderer import render_lip_batch
-    from speech2lip_tpu_torch.models import talking_face as tf
-    from speech2lip_tpu_torch.models import unet_light
-
     rgb_lip = render_lip_batch(params, batch["audio"], batch["index"].float(),
                                lip_h, lip_w, use_kernels=use_kernels,
                                compute_dtype=compute_dtype)
@@ -113,14 +112,11 @@ def render_pose_edited_batch(params, unet_params, unet_state, batch, *,
     warped = forward_warp_to_pose(merged.float(),
                                   params["canonical_depth"].float(), rel,
                                   focal).to(compute_dtype)
-    if use_kernels:
-        face = unet_light.apply_infer_fused(unet_params, unet_state, warped)
-    else:
-        face, _ = unet_light.apply(unet_params, unet_state, warped)
-    return face.float()
+    return unet_light.apply_infer(unet_params, unet_state, warped,
+                                  use_kernels).float()
 
 
-class PoseEditRenderer:
+class PoseEditRenderer(FrontEnd):
     """Renderer of pose-edited frames (``render_pose_edited_batch``),
     called like the ``Renderer``: built once with the parameters, the lip
     size (the dataset's, as the JAX CLI takes it) and the edit, then called
@@ -128,21 +124,16 @@ class PoseEditRenderer:
 
     Runs on the card unless ``device`` names another.  Casts the float32
     parameters to ``model.compute_dtype`` once; the canonical depth stays
-    float32 for the geometry.  Every batch runs through K1 and K3, whose
-    wrappers run their plain versions on the CPU.
+    float32 for the geometry.  Every batch runs through K1 and, where H
+    and W are multiples of 4, K3; their wrappers run their plain versions
+    on the CPU.
     """
 
     def __init__(self, cfg, params, unet_params, unet_state, *, lip_h: int,
                  lip_w: int, edit: str, axis: int, value: float,
                  device=None):
-        from speech2lip_tpu_torch.infer.renderer import (_DTYPES, cast_tree,
-                                                         resolve_device)
-
-        self.device = resolve_device(device)
-        self.compute_dtype = _DTYPES[cfg["model"].get("compute_dtype",
-                                                      "float32")]
-        self.params = tuple(cast_tree(t, self.device, self.compute_dtype)
-                            for t in (params, unet_params, unet_state))
+        self.params = self.bind(cfg, (params, unet_params, unet_state),
+                                device)
         self.params[0]["canonical_depth"] = params["canonical_depth"].to(
             self.device, torch.float32)
         self.options = dict(lip_h=int(lip_h), lip_w=int(lip_w),

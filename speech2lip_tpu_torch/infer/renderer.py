@@ -4,10 +4,16 @@
 Five stages per batch of frames: the audio encoder (once per frame), the
 per-frame audio/time features, the lip MLP over the lip crop's pixels (K1),
 the paste/blend composite with the windowed backward warp (K2), and the
-post-fusion U-Net (five K3 blocks).  ``use_kernels`` routes the three
-kernel stages through the kernel wrappers, which launch their CUDA kernels
-on CUDA tensors and run their plain versions on CPU tensors;
-``use_kernels=False`` is the plain path of the JAX package's XLA graph.
+post-fusion U-Net (five K3 blocks, ``unet_light.apply_infer``).
+``use_kernels`` routes the three kernel stages through the kernel
+wrappers, which launch their CUDA kernels on CUDA tensors and run their
+plain versions on CPU tensors; ``use_kernels=False`` is the plain path of
+the JAX package's XLA graph.
+
+``FrontEnd`` is what the four serving front ends (``Renderer``,
+``static_scene.StaticSceneRenderer``, ``pipeline.MultiSpeakerServer`` and
+``pose_edit.PoseEditRenderer``) bind alike: device, path, dtype, cast
+parameters and lip geometry.
 """
 
 from __future__ import annotations
@@ -17,14 +23,13 @@ from typing import Any, Dict, Optional
 import torch
 
 from speech2lip_tpu_torch.core import spans
+from speech2lip_tpu_torch.core.device import DTYPES, cast_tree, resolve_device
 from speech2lip_tpu_torch.infer import graphs
 from speech2lip_tpu_torch.models import talking_face as tf
 from speech2lip_tpu_torch.models import unet_light
 from speech2lip_tpu_torch.ops import nn as tnn
 from speech2lip_tpu_torch.ops.coords import get_coords
 from speech2lip_tpu_torch.ops.embedders import fourier_embed, time_embed
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def batched_frame_feature(params, audio_codes, t_indices):
@@ -87,43 +92,52 @@ def render_face_batch(params, unet_params, unet_state, batch: Dict[str, Any],
             use_kernels=use_kernels)
         unet_in = unet_in.to(compute_dtype)
     with stage("render.unet"):
-        if use_kernels:
-            face = unet_light.apply_infer_fused(unet_params, unet_state,
-                                                unet_in)
-        else:
-            face, _ = unet_light.apply(unet_params, unet_state, unet_in)
-        face = face.float()
+        face = unet_light.apply_infer(unet_params, unet_state, unet_in,
+                                      use_kernels).float()
     return {"lip": rgb_lip, "face": face}
 
 
-def resolve_device(device=None) -> torch.device:
-    """The device a renderer runs on: the card unless the caller names
-    another (``device="cpu"``); raises when the card is asked for and
-    there is none."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
-                           "plain versions on the CPU")
-    return device
+class FrontEnd:
+    """Base of the serving front ends: ``bind`` sets what they bind
+    alike."""
+
+    def bind(self, cfg: Dict[str, Any], trees, device=None,
+             use_kernels: Optional[bool] = True,
+             compute_dtype: Optional[torch.dtype] = None,
+             kernel_dtype: Optional[torch.dtype] = None,
+             plain_dtype: Optional[torch.dtype] = None):
+        """Sets ``device`` (the card unless ``device`` names another),
+        ``use_kernels`` (None: the card's default, the kernels there; a
+        CUDA device serves no plain path, so False raises there before any
+        tensor moves), ``compute_dtype`` (the override, else
+        ``kernel_dtype`` with the kernels and ``plain_dtype`` without,
+        each the config's ``model.compute_dtype`` where None) and the lip
+        geometry; returns ``trees`` on the device in that dtype."""
+        self.device = resolve_device(device)
+        on_card = self.device.type == "cuda"
+        if use_kernels is None:
+            use_kernels = on_card
+        if on_card and not use_kernels:
+            raise ValueError(f"{type(self).__name__}: a CUDA device runs "
+                             "the kernels; use_kernels=False is for the CPU")
+        self.use_kernels = bool(use_kernels)
+        self.compute_dtype = (
+            compute_dtype or (kernel_dtype if use_kernels else plain_dtype)
+            or DTYPES[cfg["model"].get("compute_dtype", "float32")])
+        d = cfg["data"]
+        self.lip_h, self.lip_w = int(d["height"]), int(d["width"])
+        self.expand_divisor = int(d.get("expand_mask_divisor", 5))
+        return cast_tree(trees, self.device, self.compute_dtype)
 
 
-def cast_tree(tree, device, dtype):
-    """The tree's tensors on ``device``, float32 leaves cast to ``dtype``."""
-    if isinstance(tree, dict):
-        return {k: cast_tree(v, device, dtype) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [cast_tree(v, device, dtype) for v in tree]
-    t = torch.as_tensor(tree).to(device)
-    return t.to(dtype) if t.dtype == torch.float32 else t
-
-
-class Renderer:
+class Renderer(FrontEnd):
     """Renderer bound to a config's geometry and a device.
 
     Runs on the card unless ``device`` names another.  Casts the float32
     parameters to ``model.compute_dtype`` once.  On a CUDA device every
-    batch runs through the kernels K1-K3 and a kernel that fails raises:
-    there is no fallback; from the second consecutive batch of one shape
+    batch runs through the kernels K1, K2 and, where H and W are multiples
+    of 4, K3 (``unet_light.apply_infer``); a kernel that fails raises:
+    there is no fallback.  From the second consecutive batch of one shape
     on, the three stages replay CUDA graphs (``infer.graphs``), and the
     returned tensors are the caller's.  On the CPU the kernel wrappers run
     their plain versions.
@@ -131,18 +145,11 @@ class Renderer:
 
     def __init__(self, cfg: Dict[str, Any], params, unet_params, unet_state,
                  device=None, window: Optional[tuple] = None):
-        d = cfg["data"]
-        self.lip_h = int(d["height"])
-        self.lip_w = int(d["width"])
-        self.expand_divisor = int(d.get("expand_mask_divisor", 5))
+        self.params = self.bind(cfg, (params, unet_params, unet_state),
+                                device)
         if window is None:
-            window = d.get("warp_window")
+            window = cfg["data"].get("warp_window")
         self.window = tuple(window) if window is not None else None
-        self.compute_dtype = _DTYPES[cfg["model"].get("compute_dtype",
-                                                      "float32")]
-        self.device = resolve_device(device)
-        self.params = tuple(cast_tree(t, self.device, self.compute_dtype)
-                            for t in (params, unet_params, unet_state))
         # each input's static buffer holds it in the dtype the batch's
         # first op casts it to (None: as given)
         cdt = self.compute_dtype

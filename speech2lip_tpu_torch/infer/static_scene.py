@@ -14,9 +14,11 @@ The crop equals the full frame exactly only with translation-equivariant
 ops: crops are aligned to 4 so both pools keep the full image's grid, and
 the plain path upsamples with the exact-2x closed form
 (``unet_light.apply(exact2x=True)``).  The kernel path runs K3
-(``apply_infer_fused``), which upsamples align-corners on the crop, as the
-JAX package's fused TPU kernel does: there the crop's interior differs
+(``unet_light.apply_infer``), which upsamples align-corners on the crop, as
+the JAX package's fused TPU kernel does: there the crop's interior differs
 from the full frame by the sampling grid (a behaviour of the reference).
+As in the JAX package, K3 takes a U-Net input of at most ``K3_MAX`` pixels
+a side (the TPU kernel's VMEM budget); a larger one runs exact-2x.
 """
 
 from __future__ import annotations
@@ -27,9 +29,7 @@ import torch
 
 from speech2lip_tpu_torch.core import spans
 from speech2lip_tpu_torch.infer import graphs
-from speech2lip_tpu_torch.infer.renderer import (_DTYPES, cast_tree,
-                                                 render_lip_batch,
-                                                 resolve_device)
+from speech2lip_tpu_torch.infer.renderer import FrontEnd, render_lip_batch
 from speech2lip_tpu_torch.models import talking_face as tf
 from speech2lip_tpu_torch.models import unet_light
 
@@ -38,6 +38,7 @@ from speech2lip_tpu_torch.models import unet_light
 # HALO rounds it up to a multiple of 4
 HALO = 32
 PASTE_MARGIN = 32   # interior = window + PASTE_MARGIN >= receptive field
+K3_MAX = 500        # the JAX static scene's cap on K3's input side
 
 
 def _align4(v: int, up: bool) -> int:
@@ -67,35 +68,11 @@ def crop_geometry(window: Tuple[int, int, int, int], face_h: int,
             "iy0": iy0, "ix0": ix0, "ih": iy1 - iy0, "iw": ix1 - ix0}
 
 
-def fused_unet_fits(h: int, w: int) -> bool:
-    """Whether the kernel path runs the U-Net at h x w through K3: H and W
-    multiples of 4 and at most 500 (the TPU kernel's VMEM budget), the
-    JAX package's shape rule."""
-    return h % 4 == 0 and w % 4 == 0 and h <= 500 and w <= 500
+def _under_cap(x) -> bool:
+    return x.shape[1] <= K3_MAX and x.shape[2] <= K3_MAX
 
 
-def _apply_unet(unet_params, unet_state, x, use_kernels: bool):
-    """The U-Net as the JAX package's ``_apply_unet`` chooses it by shape:
-    with kernels, K3 (``apply_infer_fused``) where ``fused_unet_fits``;
-    otherwise the plain exact-2x forward.  The choice follows the
-    reference's shape rule; it is not a fallback for a kernel that fails
-    (one that fails raises)."""
-    if use_kernels and fused_unet_fits(*x.shape[1:3]):
-        return unet_light.apply_infer_fused(unet_params, unet_state, x)
-    out, _ = unet_light.apply(unet_params, unet_state, x, exact2x=True)
-    return out
-
-
-def _plain_unet(unet_params, unet_state, x):
-    """What ``_apply_unet(use_kernels=True)`` computes, with no kernel:
-    K3's function (``unet_light.apply``, align-corners) where K3 runs,
-    the exact-2x forward elsewhere."""
-    out, _ = unet_light.apply(unet_params, unet_state, x,
-                              exact2x=not fused_unet_fits(*x.shape[1:3]))
-    return out
-
-
-class StaticSceneRenderer:
+class StaticSceneRenderer(FrontEnd):
     """Per-identity renderer for streaming audio.
 
     cfg: config dict (lip geometry, ``model.compute_dtype``); params /
@@ -124,23 +101,10 @@ class StaticSceneRenderer:
                  lip_x: int, lip_y: int, device=None,
                  use_kernels: Optional[bool] = None,
                  compute_dtype: Optional[torch.dtype] = None):
-        d = cfg["data"]
-        self.lip_h, self.lip_w = int(d["height"]), int(d["width"])
+        self.params, self.unet_params, self.unet_state = self.bind(
+            cfg, (params, unet_params, unet_state), device, use_kernels,
+            compute_dtype, kernel_dtype=torch.bfloat16)
         self.lip_x, self.lip_y = int(lip_x), int(lip_y)
-        self.device = resolve_device(device)
-        on_card = self.device.type == "cuda"
-        if use_kernels is None:
-            use_kernels = on_card
-        if on_card and not use_kernels:
-            raise ValueError("StaticSceneRenderer: a CUDA device runs the "
-                             "kernels; use_kernels=False is for the CPU")
-        self.use_kernels = bool(use_kernels)
-        cdt = _DTYPES[cfg["model"].get("compute_dtype", "float32")]
-        self.compute_dtype = compute_dtype or (
-            torch.bfloat16 if self.use_kernels else cdt)
-        self.params, self.unet_params, self.unet_state = (
-            cast_tree(t, self.device, self.compute_dtype)
-            for t in (params, unet_params, unet_state))
         self.scene = tuple(
             torch.as_tensor(base[k]).to(self.device, self.compute_dtype)[None]
             for k in ("rgb_face_zero", "rgb_face_ori", "mask_lip_canonical"))
@@ -149,11 +113,9 @@ class StaticSceneRenderer:
         self.face_h, self.face_w = self.scene[0].shape[1:3]
         self.window = tuple(int(v) for v in window)
         self.geo = crop_geometry(self.window, self.face_h, self.face_w)
-        self.expand_divisor = int(d.get("expand_mask_divisor", 5))
         # outside the warp window the composite is rgb_face_ori itself
         with torch.no_grad():
-            self.static_face = _apply_unet(self.unet_params, self.unet_state,
-                                           self.scene[1], self.use_kernels)
+            self.static_face = self._unet(self.scene[1])
         self.graphs = graphs.StageGraphs(self.device)
 
     def _composite(self, audio, t_indices, use_kernels: bool,
@@ -173,6 +135,13 @@ class StaticSceneRenderer:
                 self.lip_y, expand_divisor=self.expand_divisor,
                 window=self.window, use_kernels=use_kernels)
             return unet_in.to(self.compute_dtype)
+
+    def _unet(self, x):
+        """The U-Net on x as the JAX static scene runs it: K3 on the kernel
+        path where x is at most ``K3_MAX`` a side, exact-2x elsewhere."""
+        return unet_light.apply_infer(self.unet_params, self.unet_state, x,
+                                      self.use_kernels and _under_cap(x),
+                                      exact2x=True)
 
     def _render(self, unet_in, unet, static_face):
         """``unet`` on the crop of the composite, its interior pasted into
@@ -208,19 +177,20 @@ class StaticSceneRenderer:
         unet_in = self._composite(x["audio"], x["t_indices"],
                                   self.use_kernels, stage)
         with stage("render.unet"):
-            return {"face": self._render(
-                unet_in, lambda u: _apply_unet(
-                    self.unet_params, self.unet_state, u, self.use_kernels),
-                self.static_face)}
+            return {"face": self._render(unet_in, self._unet,
+                                         self.static_face)}
 
     def render_plain(self, audio, t_indices):
         """The kernel path's batch computed with no kernel, on this
         renderer's parameters, dtype and scene: the lip and the composite
-        through their plain versions, the U-Net through ``_plain_unet`` on
-        the crop and on the static face.  The reference the kernel path is
-        held to; it serves nothing."""
+        through their plain versions, the U-Net with no kernel on the crop
+        and on the static face: K3's function (align-corners) where the
+        kernel path runs K3, exact-2x elsewhere.  The reference the kernel
+        path is held to; it serves nothing."""
         def unet(x):
-            return _plain_unet(self.unet_params, self.unet_state, x)
+            k3 = unet_light.k3_runs(x.shape, _under_cap(x))
+            return unet_light.apply_infer(self.unet_params, self.unet_state,
+                                          x, False, exact2x=not k3)
         with torch.no_grad():
             return self._render(self._composite(audio, t_indices, False),
                                 unet, unet(self.scene[1]))
@@ -229,7 +199,5 @@ class StaticSceneRenderer:
         """The full-frame U-Net on the same composite (same upsample
         semantics), for parity checks and timing."""
         with torch.no_grad():
-            return _apply_unet(
-                self.unet_params, self.unet_state,
-                self._composite(audio, t_indices, self.use_kernels),
-                self.use_kernels).float()
+            return self._unet(self._composite(audio, t_indices,
+                                              self.use_kernels)).float()

@@ -9,7 +9,8 @@ conv.  NHWC, HWIO kernels, the JAX package's parameter tree.
 points, each of which computes the same function through kernels:
 ``apply_infer_fused`` (five K3 blocks), ``apply_infer_hcw`` (ten K4
 convs), ``apply_infer_pallas`` (ten K6 convs) and ``apply_infer_dconv``
-(five K5 DoubleConvs).
+(five K5 DoubleConvs).  ``apply_infer`` is the serving U-Net: the one
+place that chooses between K3 and the plain forward.
 """
 
 from __future__ import annotations
@@ -182,3 +183,21 @@ def apply_infer_fused(params, state, x):
     u = blk("up2", x1, up=u)
     wo = params["outc"]["w"][0, 0]  # [64, n_classes]
     return u @ wo + params["outc"]["b"]
+
+
+def k3_runs(shape, kernels: bool) -> bool:
+    """Whether ``apply_infer`` runs K3 on an input of ``shape`` [B, H, W,
+    C]: with ``kernels`` and H, W multiples of 4, the JAX renderer's shape
+    rule (both pools and the upsamples need even sizes at every level)."""
+    return bool(kernels) and shape[1] % 4 == 0 and shape[2] % 4 == 0
+
+
+def apply_infer(params, state, x, kernels: bool, exact2x: bool = False):
+    """The serving U-Net, x [B, H, W, C] -> [B, H, W, n_classes]: K3
+    (``apply_infer_fused``) where ``k3_runs``, the plain eval forward
+    ``apply(exact2x=exact2x)`` elsewhere.  The choice follows the
+    reference's shape rule; it is not a fallback for a kernel that fails
+    (one that fails raises)."""
+    if k3_runs(x.shape, kernels):
+        return apply_infer_fused(params, state, x)
+    return apply(params, state, x, exact2x=exact2x)[0]

@@ -62,7 +62,7 @@ def deepspeech_logits(x: np.ndarray, ds_params, batch_t: int = 4096,
     """[T, 494] input vectors -> [T, 29] logits: T zero-padded up to a
     multiple of ``batch_t``, the RNN run on ``device`` (the card unless
     named), the padding cropped."""
-    from speech2lip_tpu_torch.infer.renderer import resolve_device
+    from speech2lip_tpu_torch.core.device import resolve_device
     from speech2lip_tpu_torch.models import deepspeech
 
     device = resolve_device(device)

@@ -49,8 +49,8 @@ def build(device, size=None) -> SimpleNamespace:
     from speech2lip_tpu_torch.config import default_config
     from speech2lip_tpu_torch.data.synthetic import synthetic_batch
     from speech2lip_tpu_torch.data.windows import compute_warp_window
-    from speech2lip_tpu_torch.infer.renderer import (cast_tree,
-                                                     render_face_batch,
+    from speech2lip_tpu_torch.core.device import cast_tree
+    from speech2lip_tpu_torch.infer.renderer import (render_face_batch,
                                                      render_lip_batch)
     from speech2lip_tpu_torch.models import talking_face as tf
     from speech2lip_tpu_torch.models import unet_light
@@ -97,8 +97,7 @@ def build(device, size=None) -> SimpleNamespace:
             use_kernels=k)[0]
 
     unet_plain = lambda: unet_light.apply(up, us, x)[0]
-    unet = ((lambda: unet_light.apply_infer_fused(up, us, x)) if on_card
-            else unet_plain)
+    unet = lambda: unet_light.apply_infer(up, us, x, on_card)
     stages = {"full render": (full(on_card), full(False)),
               "lip MLP": (mlp(on_card), mlp(False)),
               "composite": (comp(on_card), comp(False)),
@@ -169,7 +168,7 @@ def main(argv=None, size=None):
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device to run on (default: the card)")
     args = ap.parse_args(argv)
-    from speech2lip_tpu_torch.infer.renderer import resolve_device
+    from speech2lip_tpu_torch.core.device import resolve_device
     return run(build(resolve_device(args.device), size))
 
 

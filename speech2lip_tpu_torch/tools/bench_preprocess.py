@@ -133,7 +133,7 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from speech2lip_tpu_torch.infer.renderer import resolve_device
+    from speech2lip_tpu_torch.core.device import resolve_device
     from speech2lip_tpu_torch.ops.nn import full_float32
     from speech2lip_tpu_torch.parallel import distributed
     from speech2lip_tpu_torch.parallel.mesh import make_mesh

@@ -55,7 +55,7 @@ def build(args) -> SimpleNamespace:
     from speech2lip_tpu_torch.data.windows import compute_warp_window
     from speech2lip_tpu_torch.infer.pipeline import (RENDER_KEYS,
                                                      MultiSpeakerServer)
-    from speech2lip_tpu_torch.infer.renderer import resolve_device
+    from speech2lip_tpu_torch.core.device import resolve_device
     from speech2lip_tpu_torch.models import talking_face as tfm
 
     device = resolve_device(args.device)

@@ -361,7 +361,7 @@ def main(argv=None, size=None):
                     help="torch device to run on (default: the card)")
     args = ap.parse_args(argv)
 
-    from speech2lip_tpu_torch.infer.renderer import resolve_device
+    from speech2lip_tpu_torch.core.device import resolve_device
     dev = resolve_device(args.device)
     size = tuple(size or MAY)
     rows = []

@@ -101,7 +101,7 @@ def main(argv=None, part=None):
     from speech2lip_tpu_torch.config import save_config
     from speech2lip_tpu_torch.core import checkpoint as ckpt_io
     from speech2lip_tpu_torch.data.synthetic import make_learnable_tree
-    from speech2lip_tpu_torch.infer.renderer import resolve_device
+    from speech2lip_tpu_torch.core.device import resolve_device
     from speech2lip_tpu_torch.train.trainer import fit
 
     device = resolve_device(args.device)

@@ -261,7 +261,7 @@ def main(argv=None, part=None):
     from speech2lip_tpu_torch.cli import infer as cli_infer
     from speech2lip_tpu_torch.cli import preprocess as cli_pre
     from speech2lip_tpu_torch.config import save_config
-    from speech2lip_tpu_torch.infer.renderer import resolve_device
+    from speech2lip_tpu_torch.core.device import resolve_device
     from speech2lip_tpu_torch.parallel.distributed import launch
     from speech2lip_tpu_torch.train.trainer import fit
 

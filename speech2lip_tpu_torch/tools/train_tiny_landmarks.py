@@ -192,7 +192,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from speech2lip_tpu_torch.core import checkpoint as ckpt_io
-    from speech2lip_tpu_torch.infer.renderer import resolve_device
+    from speech2lip_tpu_torch.core.device import resolve_device
     from speech2lip_tpu_torch.ops.nn import full_float32
 
     if os.path.realpath(args.out) == os.path.realpath(tl.CKPT):

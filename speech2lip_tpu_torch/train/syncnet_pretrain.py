@@ -94,7 +94,7 @@ def pretrain_teacher(cfg: Dict, steps: int = 400, batch: int = 16,
     them is decided by float32 noise: an atomics-ordered run can move the
     peak (ROADMAP C)."""
     from speech2lip_tpu_torch import weights
-    from speech2lip_tpu_torch.infer.renderer import resolve_device
+    from speech2lip_tpu_torch.core.device import resolve_device
     from speech2lip_tpu_torch.models import syncnet
     from speech2lip_tpu_torch.train import losses
     from speech2lip_tpu_torch.train import train_step as ts

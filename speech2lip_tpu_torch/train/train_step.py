@@ -28,6 +28,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from speech2lip_tpu_torch.core import spans
+from speech2lip_tpu_torch.core.device import DTYPES
 from speech2lip_tpu_torch.infer.renderer import batched_frame_feature
 from speech2lip_tpu_torch.models import syncnet as syncnet_mod
 from speech2lip_tpu_torch.models import talking_face as tf
@@ -46,7 +47,6 @@ from speech2lip_tpu_torch.ops.nn import full_float32
 from speech2lip_tpu_torch.parallel import mesh as mesh_mod
 from speech2lip_tpu_torch.train import losses
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # batch entries that stay float32 under mixed precision (geometry)
 _FP32_KEYS = ("coord", "coord_window", "euler", "trans", "canonical_euler",
               "canonical_trans")
@@ -396,7 +396,7 @@ def compute_losses(params, unet_params, unet_state, frozen, batch, draws,
     t_idx = batch["index"].float()
 
     if st.compute_dtype != "float32":
-        cd = _DTYPES[st.compute_dtype]
+        cd = DTYPES[st.compute_dtype]
         cast = lambda t: tree_map(
             lambda x: x.to(cd) if x.dtype == torch.float32 else x, t)
         params = cast(params)

@@ -34,11 +34,11 @@ from speech2lip_tpu_torch.core.checkpoint import (CheckpointManager,
                                                   check_weights)
 from speech2lip_tpu_torch.core import checkpoint as ckpt
 from speech2lip_tpu_torch.core import spans
+from speech2lip_tpu_torch.core.device import resolve_device
 from speech2lip_tpu_torch.core.metrics import MetricsWriter, setup_logger
 from speech2lip_tpu_torch.data.dataset import LipDataset, stack_batch
 from speech2lip_tpu_torch.data.windows import cached_warp_window
-from speech2lip_tpu_torch.infer.renderer import (render_lip_batch,
-                                                 resolve_device)
+from speech2lip_tpu_torch.infer.renderer import render_lip_batch
 from speech2lip_tpu_torch.models import talking_face as tf
 from speech2lip_tpu_torch.ops.flowviz import extract_flow, flow_to_image
 from speech2lip_tpu_torch.parallel import distributed

@@ -135,12 +135,15 @@ def _jax_models(cfg, seed):
     return p, up, us
 
 
-def test_render_pose_edited_batch_matches_jax():
+@pytest.mark.parametrize("face", [48, 66])
+def test_render_pose_edited_batch_matches_jax(face):
+    """Both paths against the JAX function; at 66 (not a multiple of 4)
+    the kernel path's U-Net is the plain forward, as in the JAX renderer."""
     from speech2lip_tpu.core.config import default_config
     from speech2lip_tpu.data.synthetic import synthetic_batch
     from speech2lip_tpu_torch import weights
 
-    face, lip = 48, 16
+    lip = 16
     cfg = default_config()
     cfg["model"]["canonical_depth_height"] = face
     cfg["model"]["canonical_depth_width"] = face
@@ -266,7 +269,7 @@ def test_pose_edit_renderer_is_the_function_on_cast_parameters(dtype):
     from speech2lip_tpu.data.synthetic import synthetic_batch
     from speech2lip_tpu_torch import weights
     from speech2lip_tpu_torch.config import default_config
-    from speech2lip_tpu_torch.infer.renderer import cast_tree
+    from speech2lip_tpu_torch.core.device import cast_tree
 
     face, lip = 48, 16
     jcfg = jdefault()

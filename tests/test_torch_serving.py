@@ -101,13 +101,15 @@ def test_render_all_matches_jax(three, bsz):
 
 
 def test_render_and_render_fast_match_jax(three):
+    """The port's one ``render`` is both of the JAX server's routes,
+    ``render`` and ``render_fast``."""
     b = _batches(three, 2)[1]
     tb = {k: torch.from_numpy(v) for k, v in b.items()}
     jb = jax.tree.map(jnp.asarray, b)
     for i in (0, 1):
-        _close(three["tsrv"].render(i, tb), three["jsrv"].render(i, jb))
-        _close(three["tsrv"].render_fast(i, tb),
-               three["jsrv"].render_fast(i, jb))
+        got = three["tsrv"].render(i, tb)
+        _close(got, three["jsrv"].render(i, jb))
+        _close(got, three["jsrv"].render_fast(i, jb))
     assert three["tsrv"].param_shardings() == {
         off: torch.device("cpu") for off in three["jsrv"].groups}
 

@@ -1,8 +1,12 @@
 """The port's first slice (speech2lip_tpu_torch.infer.renderer) against the
 JAX renderer: same parameters (JAX init through ``weights.from_jax``), same
 synthetic batch, on the CPU.  Face 64, lip 16x24, 2 frames, the full
-256-wide MLP, the U-Net at base 16.
+256-wide MLP, the U-Net at base 16.  Face 66 (``ODD``, not a multiple of 4)
+is where the kernel path's U-Net is the plain forward, as in the JAX
+renderer.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -25,17 +29,23 @@ from test_torch_kernels import _tf_params, unet_params
 torch.set_num_threads(2)
 
 FACE, LIP_H, LIP_W, B = 64, 16, 24, 2
+ODD = 66
+
+
+@functools.lru_cache(maxsize=None)
+def _setup(face):
+    raw, geo = synthetic_batch(B, face=face, lip_h=LIP_H, lip_w=LIP_W)
+    box = jtf.expanded_lip_box(LIP_H, LIP_W, geo["lip_x"], geo["lip_y"])
+    window = compute_warp_window([raw["coord"][i] for i in range(B)], box,
+                                 face, face, margin=4)
+    jp = _tf_params(1)
+    jup, jus = unet_params(16, seed=1)
+    return raw, geo, window, (jp, jup, jus)
 
 
 @pytest.fixture(scope="module")
 def setup():
-    raw, geo = synthetic_batch(B, face=FACE, lip_h=LIP_H, lip_w=LIP_W)
-    box = jtf.expanded_lip_box(LIP_H, LIP_W, geo["lip_x"], geo["lip_y"])
-    window = compute_warp_window([raw["coord"][i] for i in range(B)], box,
-                                 FACE, FACE, margin=4)
-    jp = _tf_params(1)
-    jup, jus = unet_params(16, seed=1)
-    return raw, geo, window, (jp, jup, jus)
+    return _setup(FACE)
 
 
 def _jax_render(setup, window, dtype=jnp.float32):
@@ -61,8 +71,11 @@ def _err(got, ref):
 
 
 @pytest.mark.parametrize("use_window", [True, False])
-@pytest.mark.parametrize("use_kernels", [False, True])
-def test_render_face_batch_matches_jax(setup, use_window, use_kernels):
+@pytest.mark.parametrize("use_kernels,face", [
+    pytest.param(False, FACE, id="False"), pytest.param(True, FACE, id="True"),
+    pytest.param(True, ODD, id=f"True-{ODD}")])
+def test_render_face_batch_matches_jax(use_window, use_kernels, face):
+    setup = _setup(face)
     raw, geo, window, jparams = setup
     window = window if use_window else None
     assert not use_window or window is not None
@@ -85,7 +98,9 @@ def _renderer(setup, dtype):
                             window=window)
 
 
-def test_renderer_float32_matches_jax_and_launches_nothing(setup):
+@pytest.mark.parametrize("face", [FACE, ODD])
+def test_renderer_float32_matches_jax_and_launches_nothing(face):
+    setup = _setup(face)
     raw, geo, window, _ = setup
     ref = _jax_render(setup, window)
     before = (fused_mlp.launches, window_sample.launches, fused_block.launches)

@@ -15,6 +15,7 @@ from speech2lip_tpu.core.config import default_config as jdefault_config
 from speech2lip_tpu.infer import static_scene as jss
 from speech2lip_tpu_torch import weights
 from speech2lip_tpu_torch.config import default_config
+from speech2lip_tpu_torch.core.device import resolve_device
 from speech2lip_tpu_torch.data.synthetic import synthetic_batch
 from speech2lip_tpu_torch.data.windows import compute_warp_window
 from speech2lip_tpu_torch.infer import renderer as trender
@@ -218,7 +219,7 @@ def test_renderers_default_to_the_card(params, monkeypatch):
                                 geo["lip_y"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         trender.Renderer(cfg, *p)
-    assert trender.resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device("cpu") == torch.device("cpu")
     # the card serves the kernel path only (checked before any tensor moves)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(ValueError, match="use_kernels=False"):
