@@ -82,8 +82,9 @@ made from a seed:
   geometry with no group and under a one-rank NCCL group, equal bit for
   bit (plain gathers, deterministic torch ops), with the gradients' flat
   NCCL all-reduce timed; two gloo ranks sharing the card against one
-  rank on the global batch (fit with K1/K2/K7 launches a rank, and one
-  train step), the gradient all-reduce over gloo timed; sharded
+  rank on the global batch (fit with K1/K2/K7 launches a rank, its first
+  iteration's two sides each against a float64 fit, and one train
+  step), the gradient all-reduce over gloo timed; sharded
   checkpoint round trips into NaN templates at one and two ranks; and
   MultiSpeakerServer(mesh=) at one rank against the server with no mesh
   (K1/K2/K3 launches);
@@ -91,7 +92,8 @@ made from a seed:
   torch.distributed.run of ``--rank-job SPEC``), the train step at May
   geometry under a (2, 2) and a (1, 4) mesh (the U-Net on a band of rows
   a rank, 252/248 and 128/124/124/124, with halo exchanges), float32 and
-  bf16, against the one-process step on the global batch, every rank
+  bf16, against the one-process step on the global batch (with the
+  mesh steps' conv algorithms, cuDNN's heuristic pick), every rank
   ending alike, its K2/K7 launches a rank and the halos' bytes and ms;
   MultiSpeakerServer and the tracker's photometric term under (2, 2);
 
@@ -114,6 +116,7 @@ each kernel's launches on its path, error, times and bound.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -1972,11 +1975,49 @@ PAR_TRAINING = {"batch_size": PAR_B, "print_every": 1,
 # order (the CPU tests' bounds, tests/test_torch_parallel.py): a step, and
 # fit's first iteration, within 1e-5; later iterations within 1e-3, as
 # Adam's first step moves a noise-level gradient element by a whole lr
-# whatever its last bits, and the next gradients carry that
+# whatever its last bits, and the next gradients carry that.  On the card
+# each side of fit's first iteration is held to a float64 fit of the same
+# batch (``Float64``), not to the other: the train step lets cuDNN time
+# its conv algorithms, so the two sides' convs may round otherwise, and
+# grad_norm lies up to 8.0e-6 from float64 on one side and 2.5e-6 on the
+# other, 1.05e-5 apart (H100)
 PAR_BOUND, PAR_LATER_BOUND = 1e-5, 1e-3
 # the values of metrics.jsonl that the bit-for-bit comparison reads: every
 # one but the wall clock and the host timings
 PAR_TIMING_KEYS = ("t", "train/batch_ms", "train/step_ms")
+
+
+class Float64(torch.overrides.TorchFunctionMode):
+    """Float32 code run in float64: every float32 tensor or dtype that a
+    torch function takes or returns is made float64 (a tensor changed in
+    place keeps its dtype).  The witness that phase 11c holds each float32
+    side of a comparison to.  The port's kernels take no float64: run it
+    on the plain path."""
+
+    @staticmethod
+    def _up(x):
+        if isinstance(x, torch.Tensor) and x.dtype == torch.float32:
+            return x.double()
+        if x is torch.float32:
+            return torch.float64
+        if isinstance(x, (list, tuple)) and not hasattr(x, "_fields"):
+            return type(x)(Float64._up(v) for v in x)
+        if isinstance(x, dict):
+            return {k: Float64._up(v) for k, v in x.items()}
+        return x
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        up = self._up
+        if func is torch.Tensor.float:
+            return args[0].double()
+        name = getattr(func, "__name__", "")
+        inplace = (name.endswith("_") and not name.endswith("__")) or (
+            name in ("__setitem__", "__iadd__", "__isub__", "__imul__",
+                     "__itruediv__"))
+        args = (args[:1] if inplace else up(args[:1])) + up(args[1:])
+        out = func(*args, **up(kwargs or {}))
+        return out if inplace or not isinstance(
+            out, (torch.Tensor, list, tuple)) else up(out)
 
 
 def _sync(dev):
@@ -2150,7 +2191,9 @@ def rank_job(spec_path: str) -> int:
         torch.backends.cudnn.deterministic = run["deterministic"]
         torch.use_deterministic_algorithms(run["deterministic"])
         t0 = time.perf_counter()
-        state, launches, ar = _rank_fit(cfg, run["iters"], dev, counters)
+        with Float64() if run.get("float64") else contextlib.nullcontext():
+            state, launches, ar = _rank_fit(cfg, run["iters"], dev,
+                                            counters)
         torch.use_deterministic_algorithms(False)
         torch.backends.cudnn.deterministic = False
         rec = {"s": time.perf_counter() - t0, "launches": launches,
@@ -2254,18 +2297,24 @@ def training_across_processes(dev, card: str, tmp: str) -> dict:
         recs[name] = _records(c["training"]["out_dir"])
     require(seen and not any(seen), f"fit ran {sum(seen)} of {len(seen)} "
             "float32 card convs with TF32 on")
-    worst = 0.0
+    # the first iteration within 1e-4; the later records within
+    # PAR_LATER_BOUND, as in 11c: after Adam's first step the CPU's own
+    # float32 grad_norm lies 1.77e-4 from a float64 fit of this case, the
+    # card's 4.4e-5 or 1.06e-4 by the algorithms its timing picked (H100)
+    worst = [0.0, 0.0]
     for got, ref in zip(recs["card"], recs["cpu"]):
         for k in ref:
             if k.startswith(("train/loss", "train/psnr", "train/grad",
                              "val/")):
                 e = abs(got[k] - ref[k]) / max(1.0, abs(ref[k]))
-                worst = max(worst, e)
+                later = ref["it"] > 1
+                worst[later] = max(worst[later], e)
     log(f"# phase 11a: fit float32 with torch's default TF32 flags, card vs "
-        f"CPU worst rel {worst:.3g} (bound 1e-4) over "
-        f"{len(recs['cpu'])} records; {len(seen)} float32 card convs, "
-        "none with TF32")
-    require(worst <= 1e-4, "phase 11a: fit on the card vs the CPU")
+        f"CPU worst rel {worst[0]:.3g} at it 1 (bound 1e-4), {worst[1]:.3g} "
+        f"after (bound {PAR_LATER_BOUND}) over {len(recs['cpu'])} records; "
+        f"{len(seen)} float32 card convs, none with TF32")
+    require(worst[0] <= 1e-4 and worst[1] <= PAR_LATER_BOUND,
+            f"phase 11a: fit on the card vs the CPU {worst}")
     out["c1_err"] = worst
 
     # -- the identity and the children's configs ---------------------------
@@ -2286,8 +2335,9 @@ def training_across_processes(dev, card: str, tmp: str) -> dict:
 
     # nccl: the bit-for-bit pair (plain gathers: K7's float atomics add
     # in another order from run to run; deterministic torch ops), no group
-    # then one NCCL rank, and the one-rank reference of the gloo ranks
-    # (the kernel gathers, 2 PAR_B frames); gloo: two ranks of PAR_B
+    # then one NCCL rank, the float64 witness of the first iteration
+    # (plain gathers) and the one-rank reference of the gloo ranks (the
+    # kernel gathers, 2 PAR_B frames); gloo: two ranks of PAR_B
     exact = dict(iters=PAR_ITERS, deterministic=True, roundtrip=True)
     kernels = dict(iters=PAR_ITERS, deterministic=False, grouped=True)
     specs = {
@@ -2296,6 +2346,10 @@ def training_across_processes(dev, card: str, tmp: str) -> dict:
                  config=config("exact_none", pallas_gather=False)),
             dict(exact, name="exact_nccl", grouped=True,
                  config=config("exact_nccl", pallas_gather=False)),
+            dict(name="float64", iters=1, deterministic=False, grouped=True,
+                 float64=True,
+                 config=config("float64", pallas_gather=False,
+                               batch_size=2 * PAR_B)),
             dict(kernels, name="kernels_one",
                  config=config("kernels_one", pallas_gather=True,
                                batch_size=2 * PAR_B))],
@@ -2368,17 +2422,25 @@ def training_across_processes(dev, card: str, tmp: str) -> dict:
             "phase 11c: world sizes")
     ra = _records(os.path.join(tmp, "kernels_one"))
     rb = _records(os.path.join(tmp, "kernels_two"))
-    worst = [0.0, 0.0]      # the first iteration, the later records
+    (r64,) = _records(os.path.join(tmp, "float64"))
+    # the first iteration: each side against the float64 fit; the later
+    # records: the two sides against each other; worst[0] of the first
+    # iteration's two sides against each other, logged
+    worst, sides = [0.0, 0.0], [0.0, 0.0]
+    rel = lambda a, b: abs(a - b) / max(1.0, abs(b))
     for x, y in zip(ra, rb):
         for k in x:
             if k.startswith(("train/loss", "train/psnr", "train/grad",
                              "val/")):
-                e = abs(x[k] - y[k]) / max(1.0, abs(x[k]))
                 later = x["it"] > 1
-                worst[later] = max(worst[later], e)
-    require(len(ra) == len(rb) == PAR_ITERS + 1 and worst[0] <= PAR_BOUND
-            and worst[1] <= PAR_LATER_BOUND,
-            f"phase 11c: two-rank fit vs one rank rel {worst}")
+                worst[later] = max(worst[later], rel(y[k], x[k]))
+                if not later:
+                    sides = [max(sides[0], rel(x[k], r64[k])),
+                             max(sides[1], rel(y[k], r64[k]))]
+    require(len(ra) == len(rb) == PAR_ITERS + 1 and r64["it"] == 1
+            and max(sides) <= PAR_BOUND and worst[1] <= PAR_LATER_BOUND,
+            f"phase 11c: fit's first iteration vs float64, one rank / two "
+            f"ranks {sides}; two-rank fit vs one rank rel {worst}")
     sw = 0.0
     for k, v in n["step"]["metrics"].items():
         sw = max(sw, abs(g["step"]["metrics"][k] - v) / max(1.0, abs(v)))
@@ -2393,15 +2455,17 @@ def training_across_processes(dev, card: str, tmp: str) -> dict:
             and kl["launches"]["fused_mlp"] == want_k1,
             f"phase 11c: launches {kl['launches']} / sharded round trip")
     ar = kl["allreduce_ms"]
-    log(f"# phase 11c: two gloo ranks on one card, fit vs one rank on the "
-        f"global batch worst rel {worst[0]:.3g} at it 1 (bound {PAR_BOUND}), "
-        f"{worst[1]:.3g} after (bound {PAR_LATER_BOUND}), a step {sw:.3g} "
+    log(f"# phase 11c: two gloo ranks on one card, fit's first iteration "
+        f"vs a float64 fit: one rank {sides[0]:.3g}, two ranks "
+        f"{sides[1]:.3g} (bound {PAR_BOUND}; {worst[0]:.3g} apart); fit vs "
+        f"one rank on the global batch {worst[1]:.3g} after it 1 (bound "
+        f"{PAR_LATER_BOUND}), a step {sw:.3g} "
         f"(bound {PAR_BOUND}); rank 0 launches {kl['launches']} (one rank "
         f"on the global batch {nf['kernels_one']['launches']}); the step's "
         f"gradient all-reduce over gloo {ar} ms, a flat "
         f"{g['grad_bytes']}-byte all-reduce {g['grad_allreduce_ms']:.3f} ms "
         f"on {card}")
-    out.update(gloo_fit_err=worst, gloo_step_err=sw,
+    out.update(gloo_fit_err=worst, gloo_fit_f64_err=sides, gloo_step_err=sw,
                gloo_allreduce_ms=ar, gloo_flat_ms=g["grad_allreduce_ms"],
                fit_ranks=kl["launches"], fit_launches_its=PAR_ITERS,
                job_s={k: v["wall_s"] for k, v in res.items()})
@@ -2487,6 +2551,19 @@ def _pixel_tracker(dev, shape) -> float:
                for a, b in zip(*out))
 
 
+@contextlib.contextmanager
+def _heuristic_convs():
+    """The train step with no mesh, as on a mesh with a pixel axis: its
+    convs take cuDNN's heuristic pick, untimed."""
+    from speech2lip_tpu_torch.ops import nn as tnn
+    from speech2lip_tpu_torch.train import train_step as ts
+    tuned, ts.tuned_float32 = ts.tuned_float32, tnn.full_float32
+    try:
+        yield
+    finally:
+        ts.tuned_float32 = tuned
+
+
 def _pixel_rank_job(spec) -> int:
     """One of phase 12's gloo ranks, on card 0: for each of the spec's
     dtypes, the one-process step on the global batch (rank 0), then each
@@ -2560,10 +2637,14 @@ def _pixel_rank_job(spec) -> int:
         draws = ts.draw_noise(st, spec["batch"], device=dev,
                               generator=torch.Generator(dev).manual_seed(1))
         if rank == 0:
-            res["steps"][f"one/{name}"] = run(None, st, draws)
-            # the same step again: what the card's own float atomics
-            # (cuDNN's, K7 dsrc's) move from run to run
-            res["steps"][f"again/{name}"] = run(None, st, draws)
+            # with the mesh steps' conv algorithms, cuDNN's heuristic pick
+            # (train_step.step_scope on a pixel axis): with no mesh the
+            # step would time its own
+            with _heuristic_convs():
+                res["steps"][f"one/{name}"] = run(None, st, draws)
+                # the same step again: what the card's own float atomics
+                # (cuDNN's, K7 dsrc's) move from run to run
+                res["steps"][f"again/{name}"] = run(None, st, draws)
         for shape in meshes:
             mesh = mesh_mod.make_mesh(shape, device=dev)
             rec = run(mesh, st, draws)
@@ -3845,11 +3926,12 @@ def main() -> int:
                                  if "err" in v else "")
         for k, v in tools["bench_components"].items()) + f" on {card}")
     log(f"# training across processes (phase 11) {par['s']:.1f} s: C1 fit "
-        f"card vs CPU {par['c1_err']:.3g}; fit s no group / one NCCL rank "
+        f"card vs CPU {par['c1_err']}; fit s no group / one NCCL rank "
         f"{par['fit_s']}; gradients {par['grad_bytes']} bytes, flat "
         f"all-reduce NCCL one rank {par['nccl1_allreduce_ms']:.4f} ms, gloo "
         f"two ranks {par['gloo_flat_ms']:.3f} ms; two-rank fit "
-        f"{par['gloo_fit_err']} / step {par['gloo_step_err']:.3g} vs one "
+        f"{par['gloo_fit_err']} (vs float64 {par['gloo_fit_f64_err']}) / "
+        f"step {par['gloo_step_err']:.3g} vs one "
         f"rank; distributed fit launches a rank over {par['fit_launches_its']}"
         f" iterations {par['fit_ranks']}; sharded server launches "
         f"{par['mesh_server']} on {card}")

@@ -246,3 +246,31 @@ def full_float32():
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = prev
+
+
+# cuDNN's candidates a tuned conv times, its own pick first (H100, the May
+# train step's 28 conv shapes): torch's default 10 adds ~13 s to the first
+# step; 4 adds ~1.3 s for the same device time an iteration, repeated
+# from process to process; 2 left that time varying by ~2%
+TUNED_CANDIDATES = 4
+
+
+@contextlib.contextmanager
+def tuned_float32():
+    """``full_float32``, with cuDNN timing its algorithms for each conv
+    shape and direction on the shape's first call and keeping the fastest
+    for the process (``torch.backends.cudnn.benchmark``): for a loop that
+    repeats fixed shapes, as a train step does.  It times the first
+    ``TUNED_CANDIDATES`` of cuDNN's heuristic order, whose own pick is
+    among them.  The previous settings are restored after the block.  The
+    process keeps one algorithm a conv shape, whichever call ran the shape
+    first: a shape first run outside the block keeps its untimed pick in
+    it, and a shape timed in it keeps the timed pick for later callers."""
+    cudnn = torch.backends.cudnn
+    prev = (cudnn.benchmark, cudnn.benchmark_limit)
+    cudnn.benchmark, cudnn.benchmark_limit = True, TUNED_CANDIDATES
+    try:
+        with full_float32():
+            yield
+    finally:
+        cudnn.benchmark, cudnn.benchmark_limit = prev

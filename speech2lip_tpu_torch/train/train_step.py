@@ -43,7 +43,7 @@ from speech2lip_tpu_torch.ops.geometry import (backproject_depth, intrinsics,
                                                warp_grid_points)
 from speech2lip_tpu_torch.ops.grid_sample import grid_sample_onehot_border
 from speech2lip_tpu_torch.ops.kernels.hat_sample import hat_sample
-from speech2lip_tpu_torch.ops.nn import full_float32
+from speech2lip_tpu_torch.ops.nn import full_float32, tuned_float32
 from speech2lip_tpu_torch.parallel import mesh as mesh_mod
 from speech2lip_tpu_torch.train import losses
 
@@ -541,6 +541,19 @@ def reduce_metrics(metrics: Dict[str, torch.Tensor], mesh
     return metrics
 
 
+def step_scope(mesh=None):
+    """The float32 scope of a step under ``mesh``: ``ops.nn.tuned_float32``,
+    where cuDNN times each conv shape's algorithms on its first step; on a
+    mesh with a pixel axis ``ops.nn.full_float32``, cuDNN's heuristic
+    pick.  There each pixel rank runs the replicated terms' convs (LPIPS
+    on the lip among them) in a process of its own, and their metrics
+    must agree bit for bit (``reduce_metrics``): the heuristic picks the
+    same algorithm for a shape in every process, a timing need not."""
+    if mesh_mod.axis_size(mesh, mesh_mod.PIXEL) > 1:
+        return full_float32()
+    return tuned_float32()
+
+
 def loss_and_grads(params, unet_params, unet_state, frozen, batch, draws,
                    st: StepStatics, mesh=None):
     """``compute_losses`` and its gradients with respect to every leaf of
@@ -557,12 +570,12 @@ def loss_and_grads(params, unet_params, unet_state, frozen, batch, draws,
     gradient holds the whole of the replicated terms and its band's share
     of the U-Net's, times the pixel axis, so the mean over both axes is
     the global batch's), and the metrics are the global batch's.  Float32
-    work runs without TF32 (``ops.nn.full_float32``), as on the CPU."""
+    work runs without TF32, as on the CPU, in ``step_scope(mesh)``."""
     trainable = {
         "model": tree_map(lambda t: t.detach().requires_grad_(True), params),
         "unet": tree_map(lambda t: t.detach().requires_grad_(
             not st.postnet_frozen), unet_params)}
-    with full_float32(), mesh_mod.on_mesh(mesh):
+    with step_scope(mesh), mesh_mod.on_mesh(mesh):
         with spans.span("step.forward"):
             total, (metrics, new_unet_state) = compute_losses(
                 trainable["model"], trainable["unet"], unet_state, frozen,
@@ -661,7 +674,7 @@ def make_chunked_train_step(optimizer: Adam, st: StepStatics, n_chunks: int,
         return losses.photometric_loss(pred, tgt, weight=st.w_photometric)
 
     def step(state: TrainState, batch, draws):
-        with full_float32():
+        with step_scope(mesh):
             return run(state, batch, draws)
 
     def run(state: TrainState, batch, draws):

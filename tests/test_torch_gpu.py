@@ -894,26 +894,93 @@ def test_fit_runs_its_convs_without_tf32(cuda, default_tf32, tmp_path,
                                         monkeypatch):
     """Every float32 conv and matmul of a card ``fit`` step runs with TF32
     off, whatever the process's flags say: the check fails when ``fit``
-    leaves TF32 on (ROADMAP C1)."""
+    leaves TF32 on (ROADMAP C1).  cuDNN times its algorithms for each of
+    those convs (``cudnn.benchmark``), and both flags come back after."""
     import torch.nn.functional as F
 
     from speech2lip_tpu_torch.train import trainer
 
+    cudnn = torch.backends.cudnn
     seen = []
     conv = F.conv2d
 
     def spy(x, *args, **kw):
         if x.is_cuda and x.dtype == torch.float32:
-            seen.append((torch.backends.cudnn.allow_tf32,
-                         torch.backends.cuda.matmul.allow_tf32))
+            seen.append((cudnn.allow_tf32,
+                         torch.backends.cuda.matmul.allow_tf32,
+                         not cudnn.benchmark))
         return conv(x, *args, **kw)
 
     monkeypatch.setattr(F, "conv2d", spy)
     cfg = _fit_cfg(tmp_path)
     cfg["training"].update(out_dir=str(tmp_path / "out"), validate_every=0)
+    timing = (cudnn.benchmark, cudnn.benchmark_limit)
     trainer.fit(cfg, max_iters=1, device="cuda")
-    assert seen and not any(a or b for a, b in seen), seen[:3]
-    assert torch.backends.cudnn.allow_tf32       # the flags come back
+    assert seen and not any(any(s) for s in seen), seen[:3]
+    # the flags come back
+    assert cudnn.allow_tf32
+    assert (cudnn.benchmark, cudnn.benchmark_limit) == timing
+
+
+# the U-Net's train step at May's 1 x 500 x 500 under the step's scope,
+# its second call profiled: the names of the kernels it launched, as JSON
+_STEP_KERNELS = """
+import json
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from speech2lip_tpu_torch import weights
+from speech2lip_tpu_torch.models import unet_light as tunet
+from speech2lip_tpu_torch.ops.nn import tuned_float32
+from speech2lip_tpu_torch.train.train_step import tree_leaves
+
+dev = torch.device("cuda")
+_, up, us = weights.random_params(0, device=dev)
+leaves = [t.requires_grad_(True) for t in tree_leaves(up)]
+x = torch.rand(1, 500, 500, 3, device=dev,
+               generator=torch.Generator(device=dev).manual_seed(3))
+
+
+def step():
+    out, _ = tunet.apply(up, us, x, train=True)
+    grads = torch.autograd.grad(out.square().mean(), leaves)
+    torch.cuda.synchronize()
+    return grads
+
+
+with tuned_float32():
+    step()                     # each shape's first call: the timing
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+print(json.dumps(sorted({e.name for e in prof.events()
+                         if e.device_type == DeviceType.CUDA})))
+"""
+
+
+def test_step_scope_launches_no_fft_conv(cuda):
+    """The U-Net in train mode at May's 1 x 500 x 500, forward and
+    ``autograd.grad``, under the train step's scope
+    (``ops.nn.tuned_float32``): with cuDNN timing each conv shape, no
+    launched kernel is a batch-1 FFT conv's (its FFTs, or the complex
+    GEMV ``gemvx`` of its per-frequency product), which cuDNN's heuristic
+    pick runs for the 256 -> 128 conv at 250 x 250 (``up1``'s first).
+    In a process of its own: a process keeps one algorithm a conv shape,
+    fixed by the shape's first call, so a shape that an earlier test ran
+    outside the scope would keep its untimed pick here."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    run = subprocess.run([sys.executable, "-c", _STEP_KERNELS],
+                         cwd=Path(__file__).resolve().parents[1],
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+    names = json.loads(run.stdout.strip().splitlines()[-1])
+    assert names, "the profiler recorded no kernel"
+    fft = sorted(n for n in names if "gemvx" in n or "fft" in n.lower())
+    assert not fft, fft
 
 
 def test_one_rank_nccl_step_is_the_no_group_step(cuda, tmp_path):

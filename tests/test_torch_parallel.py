@@ -259,7 +259,8 @@ def test_two_rank_fit_equals_one_rank_fit(tmp_path):
         # iteration 1 from the same parameters; iteration 2 after Adam's
         # first step, which moves a noise-level gradient element by a whole
         # lr whatever its last bits (measured on this case up to 6e-5 on
-        # grad_norm; chip_smoke.py phase 11c holds the same bounds)
+        # grad_norm; chip_smoke.py phase 11c holds the card to the same
+        # bounds, its first iteration against a float64 fit)
         bound = 1e-5 if a["it"] == 1 else 1e-3
         for k in ("train/loss", "train/loss_rgb", "train/psnr",
                   "train/grad_norm", "train/loss_canonical_depth_photo"):

@@ -478,3 +478,89 @@ def test_train_step_launches_nothing_on_cpu(setup):
         tts.draw_noise(tst, B, generator=torch.Generator().manual_seed(0)))
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
     assert (tws.launches, ths.dsrc_launches, ths.dgrid_launches) == before
+
+
+def test_train_step_times_its_convs_in_its_scope(setup, monkeypatch):
+    """Every conv of a step runs with cuDNN timing its algorithms
+    (``cudnn.benchmark``, over ``ops.nn.TUNED_CANDIDATES`` candidates) and
+    TF32 off; the flags come back as they were after a step and after a
+    step that raises; ``full_float32`` alone leaves them untouched, so
+    evaluation, preprocessing and SyncNet pretraining do not time a shape
+    they are the first to run.  (A process keeps one algorithm a conv
+    shape, fixed by its first call: a shape the step timed keeps the
+    timed pick for every later caller in the process.)"""
+    import torch.nn.functional as F
+
+    from speech2lip_tpu_torch.ops import nn as tnn
+
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    flags = lambda: (cudnn.benchmark, cudnn.benchmark_limit)
+    s = setup
+    _, tst = _statics(s)
+    p, up, us, frozen, batch = _port_inputs(s)
+    opt = tts.Adam(1e-4)
+    step = tts.make_train_step(opt, tst, frozen)
+    state = tts.init_train_state(p, up, us, opt)
+    draws = tts.draw_noise(tst, B, generator=torch.Generator().manual_seed(0))
+    seen = []
+    conv = F.conv2d
+
+    def spy(*args, **kw):
+        seen.append((flags(), cudnn.allow_tf32, matmul.allow_tf32))
+        if spy.boom:
+            raise RuntimeError("boom")
+        return conv(*args, **kw)
+
+    monkeypatch.setattr(F, "conv2d", spy)
+    tuned = ((True, tnn.TUNED_CANDIDATES), False, False)
+    prev = flags()
+    try:
+        for boom in (False, True):
+            spy.boom = boom
+            for before in ((False, 10), (True, 0)):
+                cudnn.benchmark, cudnn.benchmark_limit = before
+                seen.clear()
+                if boom:
+                    with pytest.raises(RuntimeError, match="boom"):
+                        step(state, batch, draws)
+                else:
+                    step(state, batch, draws)
+                assert seen and all(x == tuned for x in seen), seen[:3]
+                assert flags() == before
+        for before in ((False, 10), (True, 0)):
+            cudnn.benchmark, cudnn.benchmark_limit = before
+            with tnn.full_float32():
+                assert flags() == before
+                assert not cudnn.allow_tf32 and not matmul.allow_tf32
+            assert flags() == before
+    finally:
+        cudnn.benchmark, cudnn.benchmark_limit = prev
+
+
+@pytest.mark.parametrize("shape,timed", [(None, True), ((2, 1), True),
+                                         ((1, 2), False), ((2, 2), False)])
+def test_step_scope_times_convs_off_the_pixel_axis(shape, timed):
+    """``step_scope(mesh)``: cuDNN times the step's convs with no mesh and
+    on the data axis alone; on a mesh with a pixel axis, whose ranks run
+    the replicated terms' convs each in its own process and must agree bit
+    for bit, it keeps cuDNN's heuristic pick.  TF32 is off either way, and
+    the flags come back after."""
+    from speech2lip_tpu_torch.ops import nn as tnn
+    from speech2lip_tpu_torch.parallel.mesh import Mesh
+
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    mesh = None if shape is None else Mesh(*shape, 0, torch.device("cpu"))
+    prev = (cudnn.benchmark, cudnn.benchmark_limit, cudnn.allow_tf32,
+            matmul.allow_tf32)
+    try:
+        cudnn.benchmark, cudnn.benchmark_limit = False, 10
+        cudnn.allow_tf32 = True
+        with tts.step_scope(mesh):
+            assert (cudnn.benchmark, cudnn.benchmark_limit) == (
+                (True, tnn.TUNED_CANDIDATES) if timed else (False, 10))
+            assert not cudnn.allow_tf32 and not matmul.allow_tf32
+        assert (cudnn.benchmark, cudnn.benchmark_limit,
+                cudnn.allow_tf32) == (False, 10, True)
+    finally:
+        (cudnn.benchmark, cudnn.benchmark_limit, cudnn.allow_tf32,
+         matmul.allow_tf32) = prev
